@@ -1,0 +1,60 @@
+"""State carry-across between the JAX package and the port.
+
+``map_state_from_numpy`` / ``frame_from_numpy`` take the JAX package's
+``MapState`` / ``FrameData`` with numpy leaves (``jax.tree.map(np.asarray,
+x)``, or any object or mapping with the same field names) and build the
+port's; ``map_state_to_numpy`` goes back.  Descriptor banks cross as numpy
+views: the JAX package's ``uint32`` words become the port's ``int32`` words
+with the same bits, and back.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+from ..frontend.frame import FrameData
+from ..models.map_state import MapState
+
+_DESC_FIELDS = ("kf_desc", "pt_desc", "desc")
+
+
+def _get(obj, name):
+    return obj[name] if isinstance(obj, Mapping) else getattr(obj, name)
+
+
+def _to_tensor(name: str, a, device) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    if name in _DESC_FIELDS:
+        if a.dtype not in (np.uint32, np.int32):
+            raise TypeError(f"{name}: expected uint32 or int32 words, got {a.dtype}")
+        a = a.view(np.int32)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def _from(cls, obj, device):
+    return cls(**{f.name: _to_tensor(f.name, _get(obj, f.name), device)
+                  for f in dataclasses.fields(cls)})
+
+
+def map_state_from_numpy(obj, device="cpu") -> MapState:
+    """The port's ``MapState`` from numpy banks with the JAX field names."""
+    return _from(MapState, obj, device)
+
+
+def frame_from_numpy(obj, device="cpu") -> FrameData:
+    """The port's ``FrameData`` from numpy arrays with the JAX field names."""
+    return _from(FrameData, obj, device)
+
+
+def map_state_to_numpy(state: MapState) -> dict:
+    """{field: numpy array} with descriptor banks as ``uint32`` words, the
+    JAX package's layout."""
+    out = {}
+    for f in dataclasses.fields(MapState):
+        a = getattr(state, f.name).cpu().numpy()
+        out[f.name] = a.view(np.uint32) if f.name in _DESC_FIELDS else a
+    return out

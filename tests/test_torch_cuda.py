@@ -1,0 +1,114 @@
+"""Card-only checks of the port, in a file that imports no JAX so that it
+runs on a machine without it:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+Every test here needs an NVIDIA GPU and skips without one.  The CPU parity
+tests (``test_torch_*.py``) hold the port against the JAX package; these
+hold the CUDA kernel against its plain version, and the port on the card
+against the port on the CPU.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from refactored_orb_slam2_tpu_torch.config import (
+    CameraConfig, MapConfig, ORBConfig, SystemConfig,
+)
+from refactored_orb_slam2_tpu_torch.ops import cuda_hamming
+from refactored_orb_slam2_tpu_torch.system import SlamSystem
+from refactored_orb_slam2_tpu_torch.utils import world3d as W
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _random_case(seed, n1, n2, radius_range, band, p_valid, device):
+    rng = np.random.default_rng(seed)
+    words = lambda n: rng.integers(0, 2**32, (n, 8), dtype=np.uint32).view(np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return (
+        t(words(n1)), t(words(n2)),
+        t(rng.uniform(0, 640, (n1, 2)).astype(np.float32)),
+        t(rng.uniform(0, 640, (n2, 2)).astype(np.float32)),
+        t(rng.uniform(*radius_range, n1).astype(np.float32)),
+        t(rng.integers(0, 8, n1).astype(np.int32)),
+        t(rng.integers(0, 8, n2).astype(np.int32)),
+        t(rng.random(n1) < p_valid), t(rng.random(n2) < p_valid),
+    ), band
+
+
+@pytest.mark.parametrize("n1,n2,radius,band,p_valid", [
+    (512, 1024, (60.0, 60.0), (-1, 0), 1.0),      # JAX run_selfcheck shape
+    (256, 384, (30.0, 120.0), (-1, 1), 0.9),      # JAX run_golden shape
+    (4096, 1000, (4.0, 20.0), (-1, 0), 0.9),      # the tracking shape
+    (70, 33, (50.0, 300.0), (-2, 2), 0.8),        # ragged edges on both sides
+])
+def test_window_match_kernel_equals_plain(cuda, n1, n2, radius, band, p_valid):
+    args, band = _random_case(n1 + n2, n1, n2, radius, band, p_valid, cuda)
+    before = cuda_hamming.launches
+    got = cuda_hamming.window_match(*args, band)
+    ref = cuda_hamming.window_match_reference(*args, band)
+    torch.cuda.synchronize()
+    assert cuda_hamming.launches == before + 1
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.int32 and g.shape == (n1,)
+        assert torch.equal(g, r)
+
+
+def test_window_match_kernel_on_cpu_copies(cuda):
+    """The same inputs on the CPU take the plain path and give the kernel's
+    answer."""
+    args, band = _random_case(7, 300, 500, (20.0, 80.0), (-1, 0), 0.9, cuda)
+    got = cuda_hamming.window_match(*args, band)
+    ref = cuda_hamming.window_match(*(a.cpu() for a in args), band)
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)
+
+
+def test_slice_on_card_agrees_with_cpu(cuda):
+    """The port tracks the same 6 rendered 320x240 frames on the card and on
+    the CPU.  Reductions and products run in another order on the card, so
+    pyramid levels above 0 may differ in the last float32 bits: the six
+    per-frame counters may differ by 2% and poses by 1 mm."""
+    cfg = SystemConfig(
+        sensor="rgbd",
+        camera=CameraConfig(fx=258.65, fy=258.25, cx=159.3, cy=127.65, bf=20.0,
+                            width=320, height=240),
+        orb=ORBConfig(n_features=500, n_levels=4),
+        map=MapConfig(max_keyframes=24, max_points=4096, max_obs_per_point=8),
+    )
+    world = W.scene_room(seed=11)
+    poses = W.traj_room_orbit(160, seed=5, span=0.45 * np.pi)[:6]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        slam = SlamSystem(cfg, device=dev)
+        rng = np.random.default_rng(0)
+        scalars = []
+        step = slam._fused_step
+
+        def recorded(*a, **k):
+            out = step(*a, **k)
+            scalars.append(out[-1].cpu().numpy())
+            return out
+
+        slam._fused_step = recorded
+        before = cuda_hamming.launches
+        for i, T in enumerate(poses):
+            img, depth = world.render_device(T, slam.cam, want_depth=True, noise=2.0,
+                                             rng=rng, device=dev)
+            assert slam.track_rgbd_device(img, depth, i / 30.0) is not None
+        out[dev] = (slam.frame_poses(), np.array(scalars),
+                    cuda_hamming.launches - before, slam.n_kf)
+    (p_cpu, s_cpu, l_cpu, k_cpu), (p_gpu, s_gpu, l_gpu, k_gpu) = out["cpu"], out["cuda"]
+    assert l_cpu == 0 and l_gpu == len(poses) - 1
+    assert k_cpu == k_gpu == 1
+    np.testing.assert_allclose(s_gpu, s_cpu, rtol=0.02, atol=2)
+    np.testing.assert_allclose(p_gpu, p_cpu, atol=1e-3)
