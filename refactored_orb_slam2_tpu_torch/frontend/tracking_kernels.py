@@ -2,6 +2,8 @@
 
 - ``match_motion_model``  = ORBmatcher::SearchByProjection(Frame, LastFrame)
   (ORBmatcher.cc:1247-1383);
+- ``match_reference_kf``  = the matching of TrackReferenceKeyFrame
+  (Tracking.cc:681-719);
 - ``select_local_points`` = Tracking::UpdateLocalPoints + Frame::isInFrustum
   (Tracking.cc:1090-1113, Frame.cc:284-339) with a static top-k budget;
 - ``match_local_points``  = ORBmatcher::SearchByProjection(Frame, vector)
@@ -30,17 +32,21 @@ class ProjMatchResult(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def _scale_table(values: tuple, device: torch.device) -> torch.Tensor:
+def scale_table(values: tuple, device: torch.device) -> torch.Tensor:
+    """A per-level constant table as float32 on ``device``, built once per
+    device: a tensor made from Python floats on a CUDA device copies from
+    host memory and synchronizes."""
     return torch.tensor(values, dtype=torch.float32).to(device)
 
 
 def _radius_scale(scale_factors: np.ndarray, level: torch.Tensor) -> torch.Tensor:
     """scale_factors[clip(level)] gathered on the device."""
-    table = _scale_table(tuple(float(v) for v in scale_factors), level.device)
+    table = scale_table(tuple(float(v) for v in scale_factors), level.device)
     return table[torch.clamp(level, 0, len(scale_factors) - 1).long()]
 
 
-def _project(cam, pc: torch.Tensor):
+def project_in_image(cam, pc: torch.Tensor):
+    """Camera-frame points -> (u, v, depth > 1e-3, inside the image)."""
     z_ok = pc[:, 2] > 1e-3
     z_safe = torch.where(z_ok, pc[:, 2], 1.0)
     u = cam.fx * pc[:, 0] / z_safe + cam.cx
@@ -79,7 +85,7 @@ def match_motion_model(
     lp = torch.clamp(last_pt, min=0).long()
     has_pt = (last_pt >= 0) & pt_valid[lp]
     pw = pt_pos[lp]
-    u, v, z_ok, in_img = _project(cam, se3.transform(Tcw, pw))
+    u, v, z_ok, in_img = project_in_image(cam, se3.transform(Tcw, pw))
     uv = torch.stack([u, v], dim=-1)
     row_valid = has_pt & z_ok & in_img
 
@@ -98,6 +104,35 @@ def match_motion_model(
                         dist=torch.where(keep, res.dist, M.BIG), mask=keep)
     base = torch.full((frame.n_slots,), -1, dtype=torch.int32, device=pw.device)
     return ProjMatchResult(pt_idx=_scatter_to_features(base, res, last_pt),
+                           n_matches=res.mask.sum(dtype=torch.int32))
+
+
+def match_reference_kf(
+    frame,                      # FrameData
+    kf_desc: torch.Tensor,      # (N, 8) reference keyframe descriptors
+    kf_pt_idx: torch.Tensor,    # (N,) reference keyframe's point slots (-1)
+    kf_feat_valid: torch.Tensor,
+    kf_angle: torch.Tensor,     # (N,) degrees
+    pt_valid: torch.Tensor,     # (P,)
+    *,
+    nn_ratio: float = 0.7,      # matcher(0.7, true) (Tracking.cc:688)
+    max_dist: int = 50,         # TH_LOW (SearchByBoW, ORBmatcher.cc:198)
+) -> ProjMatchResult:
+    """Associate the frame's features with the reference keyframe's
+    landmark-bearing features by descriptor distance alone: the full masked
+    Hamming matrix in place of SearchByBoW's vocabulary buckets, with its
+    gates (TH_LOW, ratio, mutual best, rotation histogram, one-to-one)."""
+    has_pt = ((kf_pt_idx >= 0) & kf_feat_valid
+              & pt_valid[torch.clamp(kf_pt_idx, min=0).long()])
+    res = M.nn_match(hamming(kf_desc, frame.desc), row_valid=has_pt,
+                     col_valid=frame.valid, max_dist=max_dist, ratio=nn_ratio,
+                     mutual=True)
+    res = M.resolve_duplicates(res, frame.n_slots)
+    keep = M.rotation_consistency_mask(kf_angle, frame.angle, res)
+    res = M.MatchResult(idx=torch.where(keep, res.idx, -1),
+                        dist=torch.where(keep, res.dist, M.BIG), mask=keep)
+    base = torch.full((frame.n_slots,), -1, dtype=torch.int32, device=kf_desc.device)
+    return ProjMatchResult(pt_idx=_scatter_to_features(base, res, kf_pt_idx),
                            n_matches=res.mask.sum(dtype=torch.int32))
 
 
@@ -128,7 +163,7 @@ def select_local_points(
 
     The top-k is a stable descending sort: equal scores keep the lowest slot
     first, as ``lax.top_k`` does."""
-    u, v, z_ok, in_img = _project(cam, se3.transform(Tcw, pt_pos))
+    u, v, z_ok, in_img = project_in_image(cam, se3.transform(Tcw, pt_pos))
     center = se3.translation(se3.inv(Tcw))
     po = pt_pos - center
     dist = torch.linalg.norm(po, dim=-1)

@@ -1,9 +1,12 @@
 """State carry-across between the JAX package and the port.
 
-``map_state_from_numpy`` / ``frame_from_numpy`` take the JAX package's
-``MapState`` / ``FrameData`` with numpy leaves (``jax.tree.map(np.asarray,
-x)``, or any object or mapping with the same field names) and build the
-port's; ``map_state_to_numpy`` goes back.  Descriptor banks cross as numpy
+``map_state_from_numpy`` / ``frame_from_numpy`` / ``ba_problem_from_numpy``
+take the JAX package's ``MapState`` / ``FrameData`` / ``BAProblem`` with
+numpy leaves (``jax.tree.map(np.asarray, x)``, or any object or mapping with
+the same field names) and build the port's; ``map_state_to_numpy`` goes
+back.  A ``MapState`` crosses with every bank, so a map that a JAX run
+built over several keyframes (covisibility, observations, parents) arrives
+whole.  Descriptor banks cross as numpy
 views: the JAX package's ``uint32`` words become the port's ``int32`` words
 with the same bits, and back.
 """
@@ -18,6 +21,7 @@ import torch
 
 from ..frontend.frame import FrameData
 from ..models.map_state import MapState
+from ..optim.bundle_adjustment import BAProblem
 
 _DESC_FIELDS = ("kf_desc", "pt_desc", "desc")
 
@@ -35,9 +39,15 @@ def _to_tensor(name: str, a, device) -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(device)
 
 
+def _field_names(cls):
+    if dataclasses.is_dataclass(cls):
+        return [f.name for f in dataclasses.fields(cls)]
+    return list(cls._fields)                      # a NamedTuple
+
+
 def _from(cls, obj, device):
-    return cls(**{f.name: _to_tensor(f.name, _get(obj, f.name), device)
-                  for f in dataclasses.fields(cls)})
+    return cls(**{name: _to_tensor(name, _get(obj, name), device)
+                  for name in _field_names(cls)})
 
 
 def map_state_from_numpy(obj, device="cpu") -> MapState:
@@ -48,6 +58,11 @@ def map_state_from_numpy(obj, device="cpu") -> MapState:
 def frame_from_numpy(obj, device="cpu") -> FrameData:
     """The port's ``FrameData`` from numpy arrays with the JAX field names."""
     return _from(FrameData, obj, device)
+
+
+def ba_problem_from_numpy(obj, device="cpu") -> BAProblem:
+    """The port's ``BAProblem`` from numpy arrays with the JAX field names."""
+    return _from(BAProblem, obj, device)
 
 
 def map_state_to_numpy(state: MapState) -> dict:

@@ -156,6 +156,89 @@ def update_point_stats(state: MapState, scale_factor: float,
     )
 
 
+def update_point_stats_subset(state: MapState, pt_idx: torch.Tensor,
+                              scale_factor: float, n_levels: int) -> MapState:
+    """``update_point_stats`` for the point slots in ``pt_idx`` ((M,) int32;
+    negatives are padding): local mapping refreshes the points of the
+    current keyframe, whose observation sets it just changed."""
+    from .map_ops import set_rows
+
+    P, O = state.pt_obs_kf.shape
+    M = pt_idx.shape[0]
+    row_ok = (pt_idx >= 0) & (pt_idx < P)
+    pi = torch.clamp(pt_idx, 0, P - 1).long()
+    obs_kf = state.pt_obs_kf[pi]                               # (M, O)
+    kfc = torch.clamp(obs_kf, min=0).long()
+    ftc = torch.clamp(state.pt_obs_feat[pi], min=0).long()
+    obs_ok = ((obs_kf >= 0) & state.pt_valid[pi][:, None] & state.kf_valid[kfc]
+              & row_ok[:, None])
+    descs = state.kf_desc[kfc, ftc]                            # (M, O, 8)
+    pm1 = unpack_pm1(descs)
+    ham = (256.0 - pm1 @ pm1.transpose(1, 2)) * 0.5            # exact integers
+    pair_ok = obs_ok[:, :, None] & obs_ok[:, None, :]
+    ham_sum = torch.where(obs_ok, torch.where(pair_ok, ham, 0.0).sum(dim=2), 1e9)
+    best_obs = torch.argmin(ham_sum, dim=1)
+    rows = torch.arange(M, device=pi.device)
+    new_desc = descs[rows, best_obs]
+    has_obs = torch.any(obs_ok, dim=1) & row_ok
+
+    centers = _kf_centers(state)
+    pos = state.pt_pos[pi]
+    vec = pos[:, None, :] - centers[kfc]                       # (M, O, 3)
+    n = vec / (torch.linalg.norm(vec, dim=-1, keepdim=True) + 1e-12)
+    normal = torch.where(obs_ok[..., None], n, 0.0).sum(dim=1)
+    cnt = torch.clamp(obs_ok.sum(dim=1), min=1)
+    normal = normal / cnt[:, None]
+    nn = torch.linalg.norm(normal, dim=-1, keepdim=True)
+    normal = normal / torch.where(nn < 1e-12, 1.0, nn)
+
+    ref_kf = kfc[rows, best_obs]
+    ref_ft = ftc[rows, best_obs]
+    dist_ref = torch.linalg.norm(pos - centers[ref_kf], dim=-1)
+    level = state.kf_octave[ref_kf, ref_ft]
+    max_dist = dist_ref * torch.pow(scale_factor, level.to(torch.float32))
+    min_dist = max_dist / (scale_factor ** (n_levels - 1))
+
+    tgt = torch.where(has_obs, pi, P)                          # drop pad rows
+    return state.replace(
+        pt_desc=set_rows(state.pt_desc, tgt, new_desc),
+        pt_normal=set_rows(state.pt_normal, tgt, normal),
+        pt_min_dist=set_rows(state.pt_min_dist, tgt, min_dist),
+        pt_max_dist=set_rows(state.pt_max_dist, tgt, max_dist),
+    )
+
+
+_COVIS_CHUNK = 8192
+
+
+def covisibility_matrix(state: MapState) -> torch.Tensor:
+    """(K, K) int32 weights: the number of map points both keyframes see
+    (KeyFrame::UpdateConnections, KeyFrame.cc:268-354), as B^T B of the
+    point-by-keyframe incidence B, summed over point chunks.  B holds
+    integer counts, so the float32 products are exact in any order."""
+    K, N, P, O = state.capacity
+    kf = state.pt_obs_kf
+    kfc = torch.where((kf >= 0) & state.pt_valid[:, None], kf, K).long()
+    W = torch.zeros((K, K), dtype=torch.float32, device=kf.device)
+    for s in range(0, P, _COVIS_CHUNK):
+        chunk = kfc[s:s + _COVIS_CHUNK]
+        B = torch.zeros((chunk.shape[0], K + 1), dtype=torch.int32, device=kf.device)
+        B = B.scatter_add_(1, chunk, torch.ones_like(chunk, dtype=torch.int32))
+        B = B[:, :K].to(torch.float32)
+        W = W + B.T @ B
+    W = W.to(torch.int32)
+    return W * (1 - torch.eye(K, dtype=torch.int32, device=kf.device))
+
+
+def best_covisible(weights: torch.Tensor, kf: int, top_k: int):
+    """Top-k covisible neighbours of keyframe ``kf``
+    (GetBestCovisibilityKeyFrames); equal weights keep the lowest slot
+    first, as ``lax.top_k`` does."""
+    vals, idx = torch.sort(weights[kf], descending=True, stable=True)
+    vals, idx = vals[:top_k], idx[:top_k]
+    return torch.where(vals > 0, idx, -1).to(torch.int32), vals
+
+
 def predict_scale(state_dist: torch.Tensor, max_dist: torch.Tensor,
                   scale_factor: float, n_levels: int) -> torch.Tensor:
     """Octave prediction from distance (MapPoint::PredictScale)."""

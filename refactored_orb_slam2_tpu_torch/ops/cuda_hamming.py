@@ -1,21 +1,28 @@
-"""Fused window matcher: the hand-written CUDA kernel and its plain version.
+"""Hamming best-2 matchers: the hand-written CUDA kernels and their plain
+versions.
 
-``window_match`` replaces ``refactored_orb_slam2_tpu/ops/pallas_hamming.py::
-window_match_pallas`` (kernel body ``_match_kernel``): per query row, the
-best distance, its target column and the second-best distance over the
-targets inside the row's pixel window and octave band, without storing the
-(N1, N2) distance matrix.  The kernel (``csrc/window_match.cu``) is bound by
-integer ALU on the card (8 XOR + 8 POPC per candidate pair, against ~40 B
-of input per row and per column); it keeps one query row per thread in
-registers, stages the target bank through shared memory so each column is
-read once per block, and runs the window test before the popcounts.  See
-the source for the contract.
+- ``window_match`` replaces ``refactored_orb_slam2_tpu/ops/pallas_hamming.py::
+  window_match_pallas`` (kernel body ``_match_kernel``): per query row, the
+  best distance, its target column and the second-best distance over the
+  targets inside the row's pixel window and octave band, without storing
+  the (N1, N2) distance matrix.  The kernel (``csrc/window_match.cu``) is
+  bound by integer ALU on the card (8 XOR + 8 POPC per candidate pair,
+  against ~40 B of input per row and per column); it keeps one query row
+  per thread in registers, stages the target bank through shared memory
+  so each column is read once per block, and runs the window test before
+  the popcounts.
+- ``hamming_best2`` replaces ``pallas_hamming.py::hamming_best2_pallas``
+  (kernel body ``_kernel``): the same best-2, under a precomputed (N1, N2)
+  bool mask.  The kernel (``csrc/masked_best2.cu``) gives each query row
+  one warp, so the row's mask bytes are read contiguously.
 
-On a CUDA tensor the wrapper launches that kernel or raises.  On a CPU
-tensor it runs ``window_match_reference`` (dense Hamming, then the masks,
-then ``masked_best2``), which is also what the kernel is checked against.
-The kernel builds at first use with ``nvcc`` for ``sm_90a`` into
-``build/`` next to this package, keyed by a hash of the source.
+See each source for its contract.  On a CUDA tensor a wrapper launches its
+kernel or raises.  On a CPU tensor it runs its plain version
+(``window_match_reference``, ``hamming_best2_reference``: dense Hamming,
+then the masks, then ``masked_best2``), which is also what the kernel is
+checked against.  The kernels build at first use with ``nvcc`` for
+``sm_90a`` into ``build/`` next to this package, keyed by a hash of the
+source.
 """
 
 from __future__ import annotations
@@ -33,18 +40,21 @@ from . import matching as M
 from .descriptors import hamming
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "window_match.cu"
+SOURCES = {
+    "window_match": _PKG / "csrc" / "window_match.cu",
+    "hamming_best2": _PKG / "csrc" / "masked_best2.cu",
+}
 BUILD_DIR = _PKG / "build"
 
-#: number of kernel launches since the last reset (CPU calls are not counted)
-launches = 0
+#: kernel launches per wrapper since the last reset (CPU calls are not counted)
+launches = {name: 0 for name in SOURCES}
 
-_lib = None
+_libs: dict = {}
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    for name in launches:
+        launches[name] = 0
 
 
 def _nvcc() -> str:
@@ -58,37 +68,87 @@ def _nvcc() -> str:
     if default.exists():
         return str(default)
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
-                       "to build the window-match kernel")
+                       "to build the Hamming kernels")
 
 
-def build() -> Path:
-    """Compile the kernel if this source has not been built yet; return the
-    shared library's path."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f"window_match_{digest}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
+def _lib_path(name: str) -> Path:
+    digest = hashlib.sha256(SOURCES[name].read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}_{digest}.so"
+
+
+def build(names=None) -> dict[str, Path]:
+    """Compile every kernel (or those in ``names``) whose source has not been
+    built yet, one source at a time; return {name: shared library path}."""
+    names = list(SOURCES) if names is None else list(names)
+    out = {name: _lib_path(name) for name in names}
+    for name in names:
+        if out[name].exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out[name].with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
+               str(SOURCES[name])]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {SOURCES[name].name} "
+                               f"(exit {proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, out[name])
     return out
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.window_match_launch
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p] * 4)
+_ARGTYPES = {
+    "window_match": ("window_match_launch",
+                     [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4),
+    "hamming_best2": ("masked_best2_launch",
+                      [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4),
+}
+
+
+def _launcher(name: str):
+    if name not in _libs:
+        lib = ctypes.CDLL(str(build([name])[name]))
+        symbol, argtypes = _ARGTYPES[name]
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        _libs[name] = (lib, fn)
+    return _libs[name][1]
+
+
+def _check(spec, args, sizes):
+    """Device, dtype and shape of every argument against ``spec`` rows
+    (name, dtype, trailing shape, which leading size)."""
+    device = args[0].device
+    for (name, dtype, tail, side), t in zip(spec, args):
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+        if tuple(t.shape) != tuple(sizes[s] for s in side) + tail:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the Hamming kernels run on cuda or cpu tensors, not {device}")
+    return device
+
+
+def _launch(name, args, n1, *ints):
+    """Contiguous copies of ``args``, three (n1,) int32 outputs, one launch
+    on the current stream; raises if the launch was refused."""
+    args = tuple(t.contiguous() for t in args)
+    for t in args[:2]:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: descriptor banks must be 16-byte aligned")
+    device = args[0].device
+    outs = [torch.empty(n1, dtype=torch.int32, device=device) for _ in range(3)]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _launcher(name)(*(t.data_ptr() for t in args), *ints,
+                              *(o.data_ptr() for o in outs), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    launches[name] += 1
+    return tuple(outs)
 
 
 def window_match_reference(desc_q, desc_t, uv_q, uv_t, radius, oct_q, oct_t,
@@ -100,7 +160,7 @@ def window_match_reference(desc_q, desc_t, uv_q, uv_t, radius, oct_q, oct_t,
     return M.masked_best2(hamming(desc_q, desc_t), mask)
 
 
-_SPEC = (  # name, dtype, trailing shape, which side (q rows or t rows)
+_WINDOW_SPEC = (  # name, dtype, trailing shape, leading size ("q" or "t" rows)
     ("desc_q", torch.int32, (8,), "q"), ("desc_t", torch.int32, (8,), "t"),
     ("uv_q", torch.float32, (2,), "q"), ("uv_t", torch.float32, (2,), "t"),
     ("radius", torch.float32, (), "q"), ("oct_q", torch.int32, (), "q"),
@@ -111,43 +171,42 @@ _SPEC = (  # name, dtype, trailing shape, which side (q rows or t rows)
 
 def window_match(desc_q, desc_t, uv_q, uv_t, radius, oct_q, oct_t,
                  valid_q, valid_t, oct_band: tuple[int, int]):
-    """Fused masked best-2 matcher.
+    """Fused window best-2 matcher.
 
     desc_q (N1, 8) int32, desc_t (N2, 8) int32, uv_q (N1, 2) / uv_t (N2, 2)
     float32, radius (N1,) float32, oct_q (N1,) / oct_t (N2,) int32,
     valid_q (N1,) / valid_t (N2,) bool, oct_band = (lo, hi) on
     oct_t - oct_q.  Returns (d1, i1, d2), each (N1,) int32.
     """
-    global launches
     args = (desc_q, desc_t, uv_q, uv_t, radius, oct_q, oct_t, valid_q, valid_t)
-    device = desc_q.device
     n1, n2 = desc_q.shape[0], desc_t.shape[0]
-    for (name, dtype, tail, side), t in zip(_SPEC, args):
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, expected {device}")
-        if t.dtype != dtype:
-            raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-        if tuple(t.shape) != ((n1 if side == "q" else n2),) + tail:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}")
+    device = _check(_WINDOW_SPEC, args, {"q": n1, "t": n2})
     lo, hi = int(oct_band[0]), int(oct_band[1])
     if device.type == "cpu":
         return window_match_reference(*args, (lo, hi))
-    if device.type != "cuda":
-        raise ValueError(f"window_match runs on cuda or cpu tensors, not {device}")
-    args = tuple(t.contiguous() for t in args)
-    for name, t in (("desc_q", args[0]), ("desc_t", args[1])):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
-    d1 = torch.empty(n1, dtype=torch.int32, device=device)
-    i1 = torch.empty(n1, dtype=torch.int32, device=device)
-    d2 = torch.empty(n1, dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _library().window_match_launch(
-            *(t.data_ptr() for t in args), n1, n2, lo, hi,
-            d1.data_ptr(), i1.data_ptr(), d2.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"window_match kernel launch failed: cudaError {err}")
-    launches += 1
-    return d1, i1, d2
+    return _launch("window_match", args, n1, n1, n2, lo, hi)
+
+
+def hamming_best2_reference(desc_a, desc_b, mask):
+    """Plain PyTorch version: (d1, i1, d2) int32 per row of ``desc_a``."""
+    return M.masked_best2(hamming(desc_a, desc_b), mask)
+
+
+_BEST2_SPEC = (
+    ("desc_a", torch.int32, (8,), "a"), ("desc_b", torch.int32, (8,), "b"),
+    ("mask", torch.bool, (), "ab"),
+)
+
+
+def hamming_best2(desc_a, desc_b, mask):
+    """Masked best-2 matcher.
+
+    desc_a (N1, 8) int32, desc_b (N2, 8) int32, mask (N1, N2) bool.
+    Returns (d1, i1, d2), each (N1,) int32, as ``matching.masked_best2``
+    of the Hamming matrix under ``mask``.
+    """
+    n1, n2 = desc_a.shape[0], desc_b.shape[0]
+    device = _check(_BEST2_SPEC, (desc_a, desc_b, mask), {"a": n1, "b": n2})
+    if device.type == "cpu":
+        return hamming_best2_reference(desc_a, desc_b, mask)
+    return _launch("hamming_best2", (desc_a, desc_b, mask), n1, n1, n2)

@@ -50,9 +50,7 @@ def nn_match(
     if extra_mask is not None:
         mask = mask & extra_mask
     d1, i1, d2 = masked_best2(dist, mask)
-    ok = row_valid & (d1 <= max_dist)
-    if ratio < 1.0:
-        ok = ok & (d1.to(torch.float32) < ratio * d2.to(torch.float32))
+    ok = _gates(d1, d2, row_valid, max_dist, ratio)
     if mutual:
         d = torch.where(mask, dist, BIG)
         col_best_row = torch.argmin(d, dim=0).to(torch.int32)
@@ -60,6 +58,40 @@ def nn_match(
         ok = ok & (col_best_row[i1.long()] == rows)
     idx = torch.where(ok, i1, -1)
     return MatchResult(idx=idx, dist=torch.where(ok, d1, BIG), mask=ok)
+
+
+def _gates(d1, d2, row_valid, max_dist, ratio) -> torch.Tensor:
+    """Threshold and Lowe ratio on a row's best-2."""
+    ok = row_valid & (d1 <= max_dist)
+    if ratio < 1.0:
+        ok = ok & (d1.to(torch.float32) < ratio * d2.to(torch.float32))
+    return ok
+
+
+def nn_match_desc(
+    desc_a: torch.Tensor,
+    desc_b: torch.Tensor,
+    *,
+    row_valid: torch.Tensor,
+    col_valid: torch.Tensor,
+    extra_mask: Optional[torch.Tensor] = None,
+    max_dist: int = 50,
+    ratio: float = 1.0,
+) -> MatchResult:
+    """``nn_match(hamming(desc_a, desc_b), ..., mutual=False)`` with the
+    Hamming matrix never stored: the combined mask goes to
+    ``cuda_hamming.hamming_best2`` (the CUDA kernel for CUDA tensors, its
+    plain version for CPU tensors).  The mutual check needs each column's
+    argmin over the whole matrix, so mutual matchers stay on ``nn_match``."""
+    from . import cuda_hamming      # which imports this module
+
+    mask = row_valid[:, None] & col_valid[None, :]
+    if extra_mask is not None:
+        mask = mask & extra_mask
+    d1, i1, d2 = cuda_hamming.hamming_best2(desc_a, desc_b, mask)
+    ok = _gates(d1, d2, row_valid, max_dist, ratio)
+    return MatchResult(idx=torch.where(ok, i1, -1),
+                       dist=torch.where(ok, d1, BIG), mask=ok)
 
 
 def _segment_min(values: torch.Tensor, segments: torch.Tensor,

@@ -5,8 +5,8 @@ runs on a machine without it:
 
 Every test here needs an NVIDIA GPU and skips without one.  The CPU parity
 tests (``test_torch_*.py``) hold the port against the JAX package; these
-hold the CUDA kernel against its plain version, and the port on the card
-against the port on the CPU.
+hold the CUDA kernels against their plain versions, and the port on the
+card against the port on the CPU.
 """
 
 import numpy as np
@@ -53,11 +53,11 @@ def _random_case(seed, n1, n2, radius_range, band, p_valid, device):
 ])
 def test_window_match_kernel_equals_plain(cuda, n1, n2, radius, band, p_valid):
     args, band = _random_case(n1 + n2, n1, n2, radius, band, p_valid, cuda)
-    before = cuda_hamming.launches
+    before = cuda_hamming.launches["window_match"]
     got = cuda_hamming.window_match(*args, band)
     ref = cuda_hamming.window_match_reference(*args, band)
     torch.cuda.synchronize()
-    assert cuda_hamming.launches == before + 1
+    assert cuda_hamming.launches["window_match"] == before + 1
     for g, r in zip(got, ref):
         assert g.dtype == torch.int32 and g.shape == (n1,)
         assert torch.equal(g, r)
@@ -70,6 +70,42 @@ def test_window_match_kernel_on_cpu_copies(cuda):
     got = cuda_hamming.window_match(*args, band)
     ref = cuda_hamming.window_match(*(a.cpu() for a in args), band)
     for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)
+
+
+def _masked_case(seed, n1, n2, density, device):
+    """Random descriptors with twins (ties at the best), a random mask with
+    some all-false rows."""
+    rng = np.random.default_rng(seed)
+    b = rng.integers(0, 2**32, (n2, 8), dtype=np.uint32)
+    b[n2 // 2:2 * (n2 // 2)] = b[:n2 // 2]
+    a = np.concatenate([b[rng.choice(n2, n1 // 2)],
+                        rng.integers(0, 2**32, (n1 - n1 // 2, 8), dtype=np.uint32)])
+    mask = rng.random((n1, n2)) < density
+    mask[rng.choice(n1, n1 // 10, replace=False)] = False
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    return t(a.view(np.int32)), t(b.view(np.int32)), t(mask)
+
+
+@pytest.mark.parametrize("n1,n2,density", [
+    (2048, 1000, 0.02),      # the fuse shape
+    (1000, 1000, 0.05),      # the triangulation shape
+    (1000, 1500, 0.3),       # a dense mask
+    (777, 1031, 0.5),        # ragged edges on both sides
+    (5, 3, 0.5),             # fewer rows than a block, fewer columns than a warp
+])
+def test_hamming_best2_kernel_equals_plain(cuda, n1, n2, density):
+    args = _masked_case(n1 + n2, n1, n2, density, cuda)
+    before = cuda_hamming.launches["hamming_best2"]
+    got = cuda_hamming.hamming_best2(*args)
+    ref = cuda_hamming.hamming_best2_reference(*args)
+    torch.cuda.synchronize()
+    assert cuda_hamming.launches["hamming_best2"] == before + 1
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.int32 and g.shape == (n1,)
+        assert torch.equal(g, r)
+    cpu = cuda_hamming.hamming_best2(*(a.cpu() for a in args))
+    for g, r in zip(got, cpu):
         assert torch.equal(g.cpu(), r)
 
 
@@ -100,13 +136,13 @@ def test_slice_on_card_agrees_with_cpu(cuda):
             return out
 
         slam._fused_step = recorded
-        before = cuda_hamming.launches
+        before = cuda_hamming.launches["window_match"]
         for i, T in enumerate(poses):
             img, depth = world.render_device(T, slam.cam, want_depth=True, noise=2.0,
                                              rng=rng, device=dev)
             assert slam.track_rgbd_device(img, depth, i / 30.0) is not None
         out[dev] = (slam.frame_poses(), np.array(scalars),
-                    cuda_hamming.launches - before, slam.n_kf)
+                    cuda_hamming.launches["window_match"] - before, slam.n_kf)
     (p_cpu, s_cpu, l_cpu, k_cpu), (p_gpu, s_gpu, l_gpu, k_gpu) = out["cpu"], out["cuda"]
     assert l_cpu == 0 and l_gpu == len(poses) - 1
     assert k_cpu == k_gpu == 1

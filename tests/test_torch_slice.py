@@ -141,12 +141,19 @@ def test_outside_the_slice_raises():
 
 def test_motion_failure_raises_naming_item_7():
     """A frame without texture after initialization fails motion-model
-    tracking, whose fallback is not on the slice."""
+    tracking.  Item 7 brought its fallback: TrackReferenceKeyFrame finds no
+    match either, the frame is lost, and the next frame resets the system
+    (n_kf <= 5) instead of raising.  What item 7 left out, localization-only
+    mode (item 7b), raises naming it."""
     world = W.scene_room(seed=11)
     slam = TSlam(CFG, device="cpu")
     T = W.traj_room_orbit(160, seed=5, span=0.45 * np.pi)[0]
     assert slam.track_rgbd(*world.render(T, slam.cam, want_depth=True), 0.0) is not None
     blank = torch.full((240, 320), 128, dtype=torch.uint8)
     depth = torch.full((240, 320), 2000).to(torch.uint16)
+    assert slam.track_rgbd_device(blank, depth, 1 / 30.0) is None
+    assert slam.state == 2 and slam.trajectory[-1].lost
+    assert slam.track_rgbd(*world.render(T, slam.cam, want_depth=True), 2 / 30.0) is None
+    assert slam.state == 0 and slam.n_kf == 0 and not slam.trajectory
     with pytest.raises(NotImplementedError, match="item 7"):
-        slam.track_rgbd_device(blank, depth, 1 / 30.0)
+        slam.activate_localization_mode()
