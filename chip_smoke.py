@@ -18,9 +18,16 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    window and octave-band mask), the triangulation shape (1000 x 1000, a
    band like an epipolar one), a random 30%-dense mask (1000 x 1500) and a
    ragged 777 x 1031 case with all-false rows and duplicated descriptors.
-   Then CUDA-event medians of each kernel and its plain version,
-   interleaved, at the tracking shape and at the fuse and triangulation
-   shapes;
+   Then both at the shapes wide loads and persistent grids can get wrong:
+   column counts off every alignment, one row, one column, 20000 rows,
+   6000 to 20000 columns, nothing to match, strided, transposed and
+   odd-offset views.  Then the times at the tracking shape and at the fuse
+   and triangulation shapes: the kernel's own duration on the device (from
+   a torch.profiler trace, median of 20 launches), the same at N1 = N2 = 1
+   (what any launch costs), the bound computed from the inputs (bytes over
+   the memory rate or operations over the non-tensor rate, whichever is
+   larger) with the kernel's share of it, and CUDA-event medians around the
+   wrapper and the plain version, interleaved (what a caller waits);
 4. sequence — SlamSystem(device="cuda") at the bench configuration (640x480
    RGB-D, TUM fr1 intrinsics, 1000 ORB features, 8 levels, map 512
    keyframes x 65536 points x 32 observations), synchronous mapping, loop
@@ -103,6 +110,88 @@ def _interleaved_ms(kern, plain, n: int = 20):
     return float(np.median(ms[kern])), float(np.median(ms[plain]))
 
 
+def _device_ms(fn, needle: str, n: int = 20) -> float:
+    """Median device-side duration (ms) of the kernel whose name holds
+    ``needle`` over n calls of ``fn`` in a torch.profiler trace, after 3
+    warm-up calls: the kernel's own time, which is held against the bound."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    dev, _, _ = _trace(lambda: [fn() for _ in range(n)])
+    ms = [(e.time_range.end - e.time_range.start) / 1e3 for e in dev if needle in e.name]
+    if len(ms) != n:
+        raise AssertionError(f"the trace holds {len(ms)} device events named "
+                             f"*{needle}* for {n} launches ({len(dev)} device events)")
+    return float(np.median(ms))
+
+
+# Published peaks of one NVIDIA H100 SXM at its full 700 W: device memory
+# rate, and the float32 rate outside the tensor cores, which is taken here
+# for the 32-bit integer, compare and popcount operations of these kernels
+# too (the card has no higher rate for them).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+OPS_PER_WINDOW_TEST = 8      # 2 subtractions, 2 abs, 2 compares with r, 1 octave
+                             # difference with 2 compares, the ANDs folded
+OPS_PER_PAIR = 16            # 8 XOR + 8 POPC over the 8 descriptor words
+
+
+def _bound(tensors, n1: int, ops: float) -> dict:
+    """The least time the card could take: every input read once and the
+    3 x (n1,) int32 result written once over the memory rate, or ``ops``
+    over the non-tensor rate, whichever is larger."""
+    n_bytes = sum(t.numel() * t.element_size() for t in tensors) + 3 * n1 * 4
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n_bytes, "operations": int(ops)}
+
+
+def _window_bound(args, band) -> dict:
+    """Bound of one window_match call on these inputs: a window test for
+    every (valid row, valid column), a popcount pair for every candidate."""
+    from refactored_orb_slam2_tpu_torch.ops import matching as M
+
+    _, _, uv_q, uv_t, radius, oct_q, oct_t, valid_q, valid_t = args
+    cand = (M.window_mask(uv_q, uv_t, radius)
+            & M.octave_band_mask(oct_q, oct_t, band[0], band[1])
+            & valid_q[:, None] & valid_t[None, :])
+    tests, pairs = int(valid_q.sum()) * int(valid_t.sum()), int(cand.sum())
+    out = _bound(args, args[0].shape[0], OPS_PER_WINDOW_TEST * tests + OPS_PER_PAIR * pairs)
+    return dict(out, window_tests=tests, candidate_pairs=pairs)
+
+
+def _masked_bound(args) -> dict:
+    """Bound of one hamming_best2 call: a popcount pair for every set mask
+    entry; the mask itself is N1 x N2 bytes of input."""
+    pairs = int(args[2].sum())
+    return dict(_bound(args, args[0].shape[0], OPS_PER_PAIR * pairs), candidate_pairs=pairs)
+
+
+def _measure(name, shape, kern, plain, needle, floor_fn, bound, card) -> dict:
+    """Times of one kernel at one shape: the kernel's own duration on the
+    device (trace), the same at N1 = N2 = 1 (what any launch costs), the
+    CUDA-event time around the wrapper (what a caller waits) beside the
+    plain version's, and the share of the bound."""
+    device_ms = _device_ms(kern, needle)
+    floor_ms = _device_ms(floor_fn, needle)
+    ms, plain_ms = _interleaved_ms(kern, plain)
+    share = bound["bound_ms"] / device_ms
+    print(f"kernel time, {name} at {shape}: device-side {device_ms:.5f} ms (median of 20 "
+          f"launches in a torch.profiler trace), floor at 1x1 {floor_ms:.5f} ms, "
+          f"bound {bound['bound_ms']:.6f} ms by {bound['bound_by']} "
+          f"({bound['bytes']} B, {bound['operations']} operations, "
+          f"{bound['candidate_pairs']} candidate pairs), share of bound {share:.4f}; "
+          f"a caller waits {ms:.4f} ms, plain version {plain_ms:.4f} ms "
+          f"(medians of 20, CUDA events around the call; {card})")
+    if share > 1.05:
+        raise AssertionError(f"{name} at {shape}: share of bound {share:.3f} > 1.05, "
+                             "so the bound counts more work than the kernel did")
+    return {"shape": shape, "ms": ms, "plain_ms": plain_ms, "device_ms": device_ms,
+            "floor_ms": floor_ms, "bound_ms": bound["bound_ms"],
+            "bound_by": bound["bound_by"], "library_ms": None}
+
+
 def _words(rng, n):
     return rng.integers(0, 2**32, (n, 8), dtype=np.uint32).view(np.int32)
 
@@ -111,7 +200,13 @@ def _dev(a):
     return torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
 
 
-def _window_case(rng, n1, n2, radius_range, band, p_valid):
+def _strided(t):
+    """The same values as a non-contiguous view (every second row of a
+    tensor twice as long)."""
+    return t.repeat_interleave(2, dim=0)[::2]
+
+
+def _window_case(rng, n1, n2, radius_range, band, p_valid, views=False):
     from refactored_orb_slam2_tpu_torch.ops import cuda_hamming
 
     args = (
@@ -123,6 +218,8 @@ def _window_case(rng, n1, n2, radius_range, band, p_valid):
         _dev(rng.integers(0, 8, n2).astype(np.int32)),
         _dev(rng.random(n1) < p_valid), _dev(rng.random(n2) < p_valid),
     )
+    if views:
+        args = tuple(_strided(t) for t in args)
     d1, i1, d2 = cuda_hamming.window_match(*args, band)
     r1, ri, r2 = cuda_hamming.window_match_reference(*args, band)
     torch.cuda.synchronize()
@@ -135,8 +232,8 @@ def _window_case(rng, n1, n2, radius_range, band, p_valid):
             raise AssertionError(f"ratio gate {ratio} differs at {n1}x{n2}")
     err = max(int((d1 - r1).abs().max()), int((d2 - r2).abs().max()),
               int((i1 - ri).abs().max()))
-    print(f"window kernel {n1}x{n2} band {band}: equal (max_abs_err {err}, "
-          f"{int((r1 < (1 << 20)).sum())} rows with a candidate)")
+    print(f"window kernel {n1}x{n2} band {band}{' (strided views)' if views else ''}: "
+          f"equal (max_abs_err {err}, {int((r1 < (1 << 20)).sum())} rows with a candidate)")
     return args, err
 
 
@@ -162,7 +259,7 @@ def _masked_case(rng, name):
         n1, n2 = 1000, 1500
         mask = _dev(rng.random((n1, n2)) < 0.3)
         a, b = _words(rng, n1), _words(rng, n2)
-    else:                         # ragged, empty rows, ties
+    elif name == "ragged":        # ragged, empty rows, ties
         n1, n2 = 777, 1031
         m = rng.random((n1, n2)) < 0.5
         m[rng.choice(n1, 60, replace=False)] = False
@@ -170,6 +267,24 @@ def _masked_case(rng, name):
         b = _words(rng, n2)
         b[n2 // 2:2 * (n2 // 2)] = b[:n2 // 2]          # every column has a twin
         a = np.concatenate([b[rng.choice(n2, 500)], _words(rng, n1 - 500)])
+    else:
+        # (n1, n2, density, layout): twins in the bank (ties at the best),
+        # a tenth of the rows empty; the mask contiguous, a strided view, a
+        # transposed view, or contiguous from an odd byte offset
+        n1, n2, density, layout = name
+        m = rng.random((n1, n2)) < density
+        m[rng.choice(n1, n1 // 10, replace=False)] = False
+        b = _words(rng, n2)
+        b[n2 // 2:2 * (n2 // 2)] = b[:n2 // 2]
+        a = np.concatenate([b[rng.choice(n2, n1 // 2)], _words(rng, n1 - n1 // 2)])
+        if layout == "strided":
+            mask = _dev(np.repeat(m, 2, axis=1))[:, ::2]
+        elif layout == "transposed":
+            mask = _dev(m.T).t()
+        elif layout == "odd offset":
+            mask = _dev(np.concatenate([np.zeros(3, bool), m.ravel()]))[3:].view(n1, n2)
+        else:
+            mask = _dev(m)
     return _dev(a), _dev(b), mask
 
 
@@ -184,7 +299,8 @@ def _masked_check(rng, name):
         raise AssertionError(f"masked kernel disagrees with its plain version at {name}")
     err = max(int((g - r).abs().max()) for g, r in zip(got, ref))
     d1, _, d2 = ref
-    print(f"masked kernel {name} {a.shape[0]}x{b.shape[0]}: equal (max_abs_err {err}, "
+    label = name if isinstance(name, str) else f"{name[3]} mask, density {name[2]},"
+    print(f"masked kernel {label} {a.shape[0]}x{b.shape[0]}: equal (max_abs_err {err}, "
           f"mask density {float(mask.float().mean()):.4f}, "
           f"{int((d1 < (1 << 20)).sum())} rows with a candidate, "
           f"{int(((d1 == d2) & (d1 < (1 << 20))).sum())} ties at the best)")
@@ -444,7 +560,93 @@ def _sequence(cfg, frames, poses):
                       ba=ba, launches=launches, ate=ate)
 
 
-def main() -> None:
+def _kernels(card: str) -> list:
+    """Phases 2 and 3: build both kernels, hold each against its plain
+    version, time it; returns the rows of the kernel JSON line (without
+    the launch counts of the sequence)."""
+    from refactored_orb_slam2_tpu_torch.ops import cuda_hamming
+
+    # ---- 2. build
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(cuda_hamming.SOURCES)) as pool:
+        libs = dict(pool.map(lambda n: (n, cuda_hamming.build([n])[n]),
+                             cuda_hamming.SOURCES))
+    print(f"build: {', '.join(p.name for p in libs.values())} in "
+          f"{time.perf_counter() - t0:.2f} s (set-up, {len(libs)} nvcc in parallel)")
+    for name, log in cuda_hamming.build_log.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"build {name}: {line.strip()}")
+
+    # ---- 3. kernels against their plain versions
+    rng = np.random.default_rng(1)
+    band = (-1, 0)
+    _window_case(rng, 512, 1024, (60.0, 60.0), band, 1.0)             # self-check
+    _, w_err = _window_case(rng, 256, 384, (30.0, 120.0), (-1, 1), 0.9)   # golden
+    wargs, err = _window_case(rng, 4096, 1000, (4.0, 20.0), band, 0.9)
+    w_err = max(w_err, err)
+    m_cases, m_err = {}, 0
+    for name in ("fuse", "triangulation", "random", "ragged"):
+        m_cases[name], err = _masked_check(rng, name)
+        m_err = max(m_err, err)
+
+    # what a kernel with wide loads, a bank in shared memory and a grid of
+    # persistent blocks can get wrong: column counts off every alignment,
+    # one row, one column, more rows than one pass of the grid, more columns
+    # than one bank, nothing to match, views
+    rng = np.random.default_rng(2)
+    wfloor, err = _window_case(rng, 1, 1, (700.0, 700.0), band, 1.0)
+    w_err = max(w_err, err)
+    for n1, n2, radius, p_valid, views in (
+            (1, 1000, (40.0, 80.0), 0.9, False), (700, 1, (300.0, 700.0), 0.9, False),
+            (300, 7, (100.0, 400.0), 0.9, False), (500, 1001, (20.0, 60.0), 0.9, False),
+            (777, 1031, (20.0, 60.0), 0.9, False), (20000, 1000, (4.0, 20.0), 0.9, False),
+            (512, 6000, (10.0, 40.0), 0.9, False), (300, 20000, (10.0, 40.0), 0.9, False),
+            (900, 1000, (20.0, 60.0), 0.0, False), (640, 1001, (20.0, 60.0), 0.9, True)):
+        w_err = max(w_err, _window_case(rng, n1, n2, radius, (-1, 1), p_valid, views)[1])
+    mfloor, err = _masked_check(rng, (1, 1, 1.0, "contiguous"))
+    m_err = max(m_err, err)
+    for case in ((1, 1000, 0.3, "contiguous"), (700, 1, 0.7, "contiguous"),
+                 (300, 7, 0.5, "contiguous"), (500, 1001, 0.05, "contiguous"),
+                 (20000, 1000, 0.02, "contiguous"), (512, 6000, 0.05, "contiguous"),
+                 (600, 9000, 0.3, "contiguous"), (900, 1000, 0.0, "contiguous"),
+                 (640, 1001, 0.1, "strided"), (640, 1031, 0.1, "transposed"),
+                 (333, 1000, 0.1, "odd offset"), (333, 1013, 0.5, "odd offset")):
+        m_err = max(m_err, _masked_check(rng, case)[1])
+
+    w = _measure(
+        "window_match", "4096x1000",
+        lambda: cuda_hamming.window_match(*wargs, band),
+        lambda: cuda_hamming.window_match_reference(*wargs, band),
+        "window_match_kernel", lambda: cuda_hamming.window_match(*wfloor, band),
+        _window_bound(wargs, band), card)
+    m = {}
+    for name in ("fuse", "triangulation"):
+        args = m_cases[name]
+        m[name] = _measure(
+            "hamming_best2", f"{name} {args[0].shape[0]}x{args[1].shape[0]}",
+            lambda: cuda_hamming.hamming_best2(*args),
+            lambda: cuda_hamming.hamming_best2_reference(*args),
+            "masked_best2_kernel", lambda: cuda_hamming.hamming_best2(*mfloor),
+            _masked_bound(args), card)
+    return [dict({
+        "name": "window_match",
+        "route": "cuda",
+        "source": "refactored_orb_slam2_tpu_torch/csrc/window_match.cu",
+        "replaces": "refactored_orb_slam2_tpu/ops/pallas_hamming.py:193",
+        "launches": None,
+        "max_abs_err": w_err,
+    }, **w), dict({
+        "name": "hamming_best2",
+        "route": "cuda",
+        "source": "refactored_orb_slam2_tpu_torch/csrc/masked_best2.cu",
+        "replaces": "refactored_orb_slam2_tpu/ops/pallas_hamming.py:80",
+        "launches": None,
+        "max_abs_err": m_err,
+    }, **m["fuse"], other_shapes=[m["triangulation"]])]
+
+
+def main(kernels_only: bool = False) -> None:
     # ---- 1. device
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is false; the port runs only on a GPU")
@@ -456,7 +658,6 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from refactored_orb_slam2_tpu_torch.ops import cuda_hamming
     from refactored_orb_slam2_tpu_torch.system import SlamSystem
     from refactored_orb_slam2_tpu_torch.utils import world3d as W
     from refactored_orb_slam2_tpu_torch.geometry.camera import camera_from_config
@@ -464,38 +665,11 @@ def main() -> None:
         CameraConfig, MapConfig, ORBConfig, SystemConfig,
     )
 
-    # ---- 2. build
-    t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(cuda_hamming.SOURCES)) as pool:
-        libs = dict(pool.map(lambda n: (n, cuda_hamming.build([n])[n]),
-                             cuda_hamming.SOURCES))
-    print(f"build: {', '.join(p.name for p in libs.values())} in "
-          f"{time.perf_counter() - t0:.2f} s (set-up, {len(libs)} nvcc in parallel)")
-
-    # ---- 3. kernels against their plain versions
-    rng = np.random.default_rng(1)
-    _window_case(rng, 512, 1024, (60.0, 60.0), (-1, 0), 1.0)       # self-check
-    _, e2 = _window_case(rng, 256, 384, (30.0, 120.0), (-1, 1), 0.9)   # golden
-    wargs, e3 = _window_case(rng, 4096, 1000, (4.0, 20.0), (-1, 0), 0.9)
-    w_err = max(e2, e3)
-    w_ms, w_plain = _interleaved_ms(lambda: cuda_hamming.window_match(*wargs, (-1, 0)),
-                                    lambda: cuda_hamming.window_match_reference(*wargs, (-1, 0)))
-    print(f"kernel time at 4096x1000: window_match {w_ms:.4f} ms, plain "
-          f"{w_plain:.4f} ms (median of 20 each, CUDA events; {card})")
-
-    m_cases, m_err = {}, 0
-    for name in ("fuse", "triangulation", "random", "ragged"):
-        m_cases[name], err = _masked_check(rng, name)
-        m_err = max(m_err, err)
-    m_times = {}
-    for name in ("fuse", "triangulation"):
-        args = m_cases[name]
-        m_times[name] = _interleaved_ms(lambda: cuda_hamming.hamming_best2(*args),
-                                        lambda: cuda_hamming.hamming_best2_reference(*args))
-        a, b, _ = args
-        print(f"kernel time at the {name} shape {a.shape[0]}x{b.shape[0]}: hamming_best2 "
-              f"{m_times[name][0]:.4f} ms, plain {m_times[name][1]:.4f} ms "
-              f"(median of 20 each, CUDA events; {card})")
+    kernels = _kernels(card)
+    if kernels_only:
+        print(json.dumps({"kernels": kernels}))
+        print(card)
+        return
 
     # ---- 4. the sequence
     H, Wd = 480, 640
@@ -549,25 +723,9 @@ def main() -> None:
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
-    print(json.dumps({"kernels": [{
-        "name": "window_match",
-        "route": "cuda",
-        "source": "refactored_orb_slam2_tpu_torch/csrc/window_match.cu",
-        "replaces": "refactored_orb_slam2_tpu/ops/pallas_hamming.py:193",
-        "launches": r["launches"]["window_match"],
-        "max_abs_err": w_err,
-        "ms": w_ms,
-        "plain_ms": w_plain,
-    }, {
-        "name": "hamming_best2",
-        "route": "cuda",
-        "source": "refactored_orb_slam2_tpu_torch/csrc/masked_best2.cu",
-        "replaces": "refactored_orb_slam2_tpu/ops/pallas_hamming.py:80",
-        "launches": r["launches"]["hamming_best2"],
-        "max_abs_err": m_err,
-        "ms": m_times["fuse"][0],
-        "plain_ms": m_times["fuse"][1],
-    }]}))
+    for row in kernels:
+        row["launches"] = r["launches"][row["name"]]
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
@@ -575,4 +733,8 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    # --kernels-only stops after phase 3: the kernel JSON line (launches
+    # null) and the card, without the device line of a whole run
+    if sys.argv[1:] not in ([], ["--kernels-only"]):
+        _fail(f"usage: python3 chip_smoke.py [--kernels-only] (got {sys.argv[1:]})")
+    main(kernels_only=bool(sys.argv[1:]))

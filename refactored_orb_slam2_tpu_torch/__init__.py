@@ -4,13 +4,15 @@ A second package beside ``refactored_orb_slam2_tpu`` (the JAX reference).
 Each module keeps the path and function names of its JAX counterpart, so
 ``refactored_orb_slam2_tpu/ops/orb.py`` is ported by
 ``refactored_orb_slam2_tpu_torch/ops/orb.py``.  The port imports ``torch``
-and never ``jax``; it reuses only the reference's JAX-free modules
-(``utils/config.py``, ``utils/presets.py``, ``utils/telemetry.py``,
-``ops/orb_pattern.py``).
+and never ``jax``, and nothing of the JAX package: it keeps its own copies
+of the config tree (``config.py``), the telemetry counters
+(``utils/telemetry.py``) and the rBRIEF pattern (``ops/orb_pattern.py``).
 
-Today it runs the RGB-D tracking slice (``system.SlamSystem.track_rgbd``)
-with one hand-written CUDA kernel, the fused window matcher
-(``ops/cuda_hamming.py`` over ``csrc/window_match.cu``).
+Today it runs RGB-D tracking with keyframe insertion and synchronous local
+mapping (``system.SlamSystem.track_rgbd``), with two hand-written CUDA
+kernels: the fused window matcher and the masked best-2 matcher
+(``ops/cuda_hamming.py`` over ``csrc/window_match.cu`` and
+``csrc/masked_best2.cu``).
 """
 
 __version__ = "0.1.0"

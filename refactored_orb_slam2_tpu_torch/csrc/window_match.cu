@@ -7,31 +7,69 @@
 //   d(q, t) = sum over 8 words of popc(q ^ t)             (exact)
 //   candidate iff valid_q && valid_t && |du| <= r && |dv| <= r
 //                 && lo <= oct_t - oct_q <= hi
-//   per row: d1 = best, i1 = its column (lowest column wins a tie: strict <),
+//   per row: d1 = best, i1 = its column (lowest column wins a tie),
 //            d2 = second best (= d1 when two columns tie at the best);
 //   a row with no candidate gets d1 = d2 = BIG = 2^20, i1 = 0.
 //
-// What bounds it: integer ALU.  Each candidate costs 8 XOR + 8 POPC + adds,
-// each column a handful of float compares; the inputs are ~40 B per row and
-// per column, so device-memory traffic is negligible at the tracking
-// shapes (N1 = 4096 local points, N2 = 1000 features).  Design: one thread
-// per query row keeps its descriptor in registers; a block stages the
-// target bank through shared memory in tiles of TILE columns (32 B
-// descriptor + 8 B uv + octave + valid each), so every column is read from
-// device memory once per block and broadcast to all threads of a warp.
-// The window test runs before the popcounts, so columns outside a row's
-// window cost only the compares.  The ragged edges of N1 and N2 are masked
-// here, so callers pad nothing.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// What bounds it: operations, not bytes.  The inputs are 49 B per row and
+// 45 B per column (0.3 MB at the tracking shape, 4096 local points x 1000
+// features), but every (row, column) pair costs a window test of about 8
+// plain 32-bit operations, and every candidate 8 XOR + 8 POPC.  At these
+// sizes the fixed costs (the launch, one pass over the bank, one memory
+// round trip for the row) and the length of a row's chain of dependent
+// instructions weigh more than the arithmetic, so the design spreads the
+// work over the whole card and keeps every chain short:
+//
+// - what every row needs of every column lives in shared memory: uv and
+//   octave, 12 B a column (up to kMaxBank columns, larger banks in equal
+//   parts inside the same kernel), loaded once per block while its warps
+//   read their first query rows.  An invalid column gets u = NaN, which
+//   fails every window test, so validity costs nothing.  The descriptors
+//   stay in device memory: only a candidate's is read;
+// - one warp per query row, lanes across columns: a step tests 32
+//   neighbouring columns, so a row is N2 / 32 steps, not N2.  The steps do
+//   not depend on each other: a lane only sets one bit per hit, with no
+//   branch, so their loads and compares overlap;
+// - after 32 steps (1024 columns) the lanes' bit sets go through the warp's
+//   candidate queue (best2_merge.cuh): the popcounts run on all 32 lanes at
+//   once, and not at all for a row whose window is empty;
+// - a lane's best-2 is two keys (distance << 20 | column), so the tie rule
+//   is a plain minimum and the 32 lanes merge with two warp-wide minima;
+// - as many warps a block as spread the rows over all SMs, and a grid no
+//   larger than the card holds at once; the blocks walk over the rows.
+// The ragged edges of N1 and N2 are masked here, so callers pad nothing.
+#include "best2_merge.cuh"
+
+#include <cmath>
 
 namespace {
 
-constexpr int kBig = 1 << 20;
-constexpr int kRows = 64;     // threads per block, one query row each
-constexpr int kTile = 256;    // target columns staged per pass
+using namespace best2;
 
-__global__ void __launch_bounds__(kRows)
+constexpr int kMaxBank = 8192;   // columns whose uv and octave a block holds at a time
+
+__host__ __device__ inline int round32(int n) { return (n + 31) & ~31; }
+
+// Bank columns per pass: the whole bank when it fits, else equal parts.
+inline void bank_split(int n2, int* n_banks, int* bank_cols) {
+  *n_banks = n2 > kMaxBank ? (n2 + kMaxBank - 1) / kMaxBank : 1;
+  *bank_cols = (n2 + *n_banks - 1) / *n_banks;
+}
+
+// dynamic shared memory for a bank of `cols` columns and `warps` warps
+inline size_t smem_bytes(int cols, int warps) {
+  return (size_t)round32(cols) * (sizeof(float2) + sizeof(int)) +
+         (size_t)warps * kGroup * sizeof(uint16_t);
+}
+
+// what the kernel keeps of a query row besides its descriptor
+struct Query {
+  float u, v, r;
+  int oct_lo;      // oct_q + lo: a target octave o passes iff o - oct_lo <= hi - lo
+  bool valid;
+};
+
+__global__ void __launch_bounds__(32 * kMaxWarps)
 window_match_kernel(const int32_t* __restrict__ desc_q,   // (n1, 8)
                     const int32_t* __restrict__ desc_t,   // (n2, 8)
                     const float* __restrict__ uv_q,       // (n1, 2)
@@ -41,99 +79,101 @@ window_match_kernel(const int32_t* __restrict__ desc_q,   // (n1, 8)
                     const int32_t* __restrict__ oct_t,    // (n2,)
                     const uint8_t* __restrict__ valid_q,  // (n1,) 0/1
                     const uint8_t* __restrict__ valid_t,  // (n2,) 0/1
-                    int n1, int n2, int lo, int hi,
-                    int32_t* __restrict__ d1_out,
-                    int32_t* __restrict__ i1_out,
-                    int32_t* __restrict__ d2_out) {
-  __shared__ uint4 s_desc[kTile][2];
-  __shared__ float2 s_uv[kTile];
-  __shared__ int s_oct[kTile];
-  __shared__ int s_valid[kTile];
+                    int n1, int n2, int lo, int hi, int n_banks, int bank_cols,
+                    int32_t* __restrict__ out) {          // (3, n1): d1, i1, d2
+  extern __shared__ float2 s_uv[];
+  const int cap = round32(bank_cols);
+  int* s_oct = reinterpret_cast<int*>(s_uv + cap);
+  uint16_t* s_queue = reinterpret_cast<uint16_t*>(s_oct + cap);
 
-  const int row = blockIdx.x * kRows + threadIdx.x;
-  const bool active = row < n1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const int row0 = blockIdx.x * warps + warp, stride = gridDim.x * warps;
+  uint16_t* queue = s_queue + warp * kGroup;
+  const unsigned span = static_cast<unsigned>(hi - lo);   // hi >= lo: see the launch
 
-  uint32_t q[8];
-  float qu = 0.f, qv = 0.f, r = -1.f;
-  int oq = 0;
-  bool vq = false;
-  if (active) {
-    const uint4* qp = reinterpret_cast<const uint4*>(desc_q + 8 * row);
-    const uint4 a = qp[0], b = qp[1];
-    q[0] = a.x; q[1] = a.y; q[2] = a.z; q[3] = a.w;
-    q[4] = b.x; q[5] = b.y; q[6] = b.z; q[7] = b.w;
-    qu = uv_q[2 * row];
-    qv = uv_q[2 * row + 1];
-    r = radius[row];
-    oq = oct_q[row];
-    vq = valid_q[row] != 0;
-  } else {
-#pragma unroll
-    for (int w = 0; w < 8; ++w) q[w] = 0u;
-  }
+  auto load_row = [&](int row, uint32_t (&q)[8]) {
+    Query x;
+    x.valid = valid_q[row] != 0;
+    load_query(desc_q, row, q);
+    x.u = uv_q[2 * row];
+    x.v = uv_q[2 * row + 1];
+    x.r = radius[row];
+    x.oct_lo = oct_q[row] + lo;
+    return x;
+  };
 
-  int d1 = kBig, i1 = 0, d2 = kBig;
-  for (int base = 0; base < n2; base += kTile) {
-    const int n = min(kTile, n2 - base);
-    __syncthreads();  // the previous tile is no longer read
-    for (int k = threadIdx.x; k < n; k += kRows) {
-      const int c = base + k;
-      const uint4* tp = reinterpret_cast<const uint4*>(desc_t + 8 * c);
-      s_desc[k][0] = tp[0];
-      s_desc[k][1] = tp[1];
-      s_uv[k] = make_float2(uv_t[2 * c], uv_t[2 * c + 1]);
+  for (int bank = 0; bank < n_banks; ++bank) {
+    const int c0 = bank * bank_cols;
+    const int n = min(bank_cols, n2 - c0), n32 = round32(n);
+    if (bank > 0) __syncthreads();           // the previous bank is no longer read
+    for (int k = threadIdx.x; k < n32; k += blockDim.x) {
+      const int c = c0 + min(k, n - 1);      // the padding repeats the last column
+      const float u = uv_t[2 * c], v = uv_t[2 * c + 1];
+      const bool ok = k < n && valid_t[c] != 0;
       s_oct[k] = oct_t[c];
-      s_valid[k] = valid_t[c];
+      s_uv[k] = make_float2(ok ? u : nanf(""), v);
     }
+
+    // the first row's data travels with the bank's
+    int row = row0;
+    uint32_t q[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
+    Query x = {0.f, 0.f, -1.f, 0, false};
+    if (row < n1) x = load_row(row, q);
     __syncthreads();
-    if (!vq) continue;
-    for (int k = 0; k < n; ++k) {
-      const float2 tuv = s_uv[k];
-      const int doct = s_oct[k] - oq;
-      if (!s_valid[k] || !(fabsf(qu - tuv.x) <= r) || !(fabsf(qv - tuv.y) <= r) ||
-          doct < lo || doct > hi) {
-        continue;
+
+    for (; row < n1; row += stride) {
+      if (row != row0) x = load_row(row, q);
+      int k1 = kNone, k2 = kNone;
+      if (x.valid) {
+        for (int g = 0; g < n32; g += kGroup) {
+          const int steps = min(kGroup, n32 - g) >> 5;
+          unsigned mine = 0u;                // bit s: column g + 32 s + lane is a hit
+#pragma unroll 8
+          for (int s = 0; s < steps; ++s) {
+            const int k = g + 32 * s + lane;
+            const float2 t = s_uv[k];
+            const bool hit = fabsf(x.u - t.x) <= x.r && fabsf(x.v - t.y) <= x.r &&
+                             static_cast<unsigned>(s_oct[k] - x.oct_lo) <= span;
+            mine |= static_cast<unsigned>(hit) << s;
+          }
+          queue_and_match(mine, [&](int s) { return 32 * s + lane; }, c0 + g, queue,
+                          lane, q, desc_t, k1, k2);
+        }
+        warp_merge(k1, k2);
       }
-      const uint4 a = s_desc[k][0], b = s_desc[k][1];
-      const int d = __popc(q[0] ^ a.x) + __popc(q[1] ^ a.y) + __popc(q[2] ^ a.z) +
-                    __popc(q[3] ^ a.w) + __popc(q[4] ^ b.x) + __popc(q[5] ^ b.y) +
-                    __popc(q[6] ^ b.z) + __popc(q[7] ^ b.w);
-      if (d < d1) {
-        d2 = d1;
-        d1 = d;
-        i1 = base + k;
-      } else if (d < d2) {
-        d2 = d;
-      }
+      if (lane == 0) store_row(out, n1, row, bank == 0, k1, k2);
     }
-  }
-  if (active) {
-    d1_out[row] = d1;
-    i1_out[row] = i1;
-    d2_out[row] = d2;
   }
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  Enqueues on `stream`, does not
-// synchronise, allocates nothing; returns cudaGetLastError() after the launch.
+// synchronise, allocates nothing; returns the first CUDA error of the
+// set-up or of the launch, 0 if none.  `out` is (3, n1) int32.
 extern "C" int window_match_launch(const void* desc_q, const void* desc_t,
                                    const void* uv_q, const void* uv_t,
                                    const void* radius, const void* oct_q,
                                    const void* oct_t, const void* valid_q,
                                    const void* valid_t, int n1, int n2, int lo,
-                                   int hi, void* d1, void* i1, void* d2,
-                                   void* stream) {
+                                   int hi, void* out, void* stream) {
   if (n1 <= 0) return 0;
-  const dim3 grid((n1 + kRows - 1) / kRows);
-  window_match_kernel<<<grid, kRows, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (n2 > (1 << best2::kColBits)) return static_cast<int>(cudaErrorInvalidValue);
+  if (hi < lo) n2 = 0;                       // an empty band: no row has a candidate
+  int n_banks = 1, bank_cols = 0, warps = 0, grid = 0;
+  size_t smem = 0;
+  bank_split(n2, &n_banks, &bank_cols);
+  cudaError_t err = best2::launch_shape(
+      window_match_kernel, n1, [&](int w) { return smem_bytes(bank_cols, w); },
+      &warps, &grid, &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  window_match_kernel<<<grid, 32 * warps, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(desc_q), static_cast<const int32_t*>(desc_t),
       static_cast<const float*>(uv_q), static_cast<const float*>(uv_t),
       static_cast<const float*>(radius), static_cast<const int32_t*>(oct_q),
       static_cast<const int32_t*>(oct_t), static_cast<const uint8_t*>(valid_q),
-      static_cast<const uint8_t*>(valid_t), n1, n2, lo, hi,
-      static_cast<int32_t*>(d1), static_cast<int32_t*>(i1),
-      static_cast<int32_t*>(d2));
+      static_cast<const uint8_t*>(valid_t), n1, n2, lo, hi, n_banks, bank_cols,
+      static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,7 +8,8 @@ back.  A ``MapState`` crosses with every bank, so a map that a JAX run
 built over several keyframes (covisibility, observations, parents) arrives
 whole.  Descriptor banks cross as numpy
 views: the JAX package's ``uint32`` words become the port's ``int32`` words
-with the same bits, and back.
+with the same bits, and back.  ``config_from_reference`` does the same for
+settings: the JAX package's ``SystemConfig`` becomes the port's.
 """
 
 from __future__ import annotations
@@ -19,11 +20,23 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from .. import config as C
 from ..frontend.frame import FrameData
 from ..models.map_state import MapState
 from ..optim.bundle_adjustment import BAProblem
 
 _DESC_FIELDS = ("kf_desc", "pt_desc", "desc")
+
+
+def config_from_reference(cfg):
+    """The port's config from the JAX package's: a ``SystemConfig`` or one of
+    its parts (any dataclass whose class and field names match a class of
+    ``config.py``), so both packages compute from the same settings.  An
+    unknown class or field raises."""
+    cls = getattr(C, type(cfg).__name__)
+    return cls(**{
+        f.name: (config_from_reference(v) if dataclasses.is_dataclass(v) else v)
+        for f in dataclasses.fields(cfg) for v in [getattr(cfg, f.name)]})
 
 
 def _get(obj, name):

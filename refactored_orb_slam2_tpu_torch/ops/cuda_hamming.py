@@ -6,15 +6,20 @@ versions.
   best distance, its target column and the second-best distance over the
   targets inside the row's pixel window and octave band, without storing
   the (N1, N2) distance matrix.  The kernel (``csrc/window_match.cu``) is
-  bound by integer ALU on the card (8 XOR + 8 POPC per candidate pair,
-  against ~40 B of input per row and per column); it keeps one query row
-  per thread in registers, stages the target bank through shared memory
-  so each column is read once per block, and runs the window test before
-  the popcounts.
+  bound by operations on the card (a window test per row and column, 8 XOR
+  + 8 POPC per candidate pair, against 49 B of input per row and 45 B per
+  column).
 - ``hamming_best2`` replaces ``pallas_hamming.py::hamming_best2_pallas``
   (kernel body ``_kernel``): the same best-2, under a precomputed (N1, N2)
-  bool mask.  The kernel (``csrc/masked_best2.cu``) gives each query row
-  one warp, so the row's mask bytes are read contiguously.
+  bool mask.  The kernel (``csrc/masked_best2.cu``) is bound by the bytes
+  of the mask, which it reads 16 at a time.
+
+Both kernels give each query row one warp with the lanes across columns,
+gather the row's candidates into a queue so that all 32 lanes run their
+popcounts together, read only the candidates' descriptors (from device
+memory; the window matcher keeps the targets' uv and octave, 12 B a column,
+in shared memory), and merge the lanes' best-2 with the tie rule of
+``csrc/best2_merge.cuh``; their grids fill the card and walk over the rows.
 
 See each source for its contract.  On a CUDA tensor a wrapper launches its
 kernel or raises.  On a CPU tensor it runs its plain version
@@ -22,7 +27,7 @@ kernel or raises.  On a CPU tensor it runs its plain version
 then the masks, then ``masked_best2``), which is also what the kernel is
 checked against.  The kernels build at first use with ``nvcc`` for
 ``sm_90a`` into ``build/`` next to this package, keyed by a hash of the
-source.
+source and of the header both include.
 """
 
 from __future__ import annotations
@@ -44,10 +49,15 @@ SOURCES = {
     "window_match": _PKG / "csrc" / "window_match.cu",
     "hamming_best2": _PKG / "csrc" / "masked_best2.cu",
 }
+HEADERS = (_PKG / "csrc" / "best2_merge.cuh",)     # included by every source
 BUILD_DIR = _PKG / "build"
 
 #: kernel launches per wrapper since the last reset (CPU calls are not counted)
 launches = {name: 0 for name in SOURCES}
+
+#: what nvcc printed for each kernel this process built (-Xptxas -v: the
+#: registers, shared memory and spills of every kernel)
+build_log: dict = {}
 
 _libs: dict = {}
 
@@ -72,7 +82,8 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes()).hexdigest()[:16]
+    digest = hashlib.sha256(b"".join(
+        f.read_bytes() for f in (SOURCES[name], *HEADERS))).hexdigest()[:16]
     return BUILD_DIR / f"{name}_{digest}.so"
 
 
@@ -87,21 +98,22 @@ def build(names=None) -> dict[str, Path]:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out[name].with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
-               str(SOURCES[name])]
+               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+               "-o", str(tmp), str(SOURCES[name])]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {SOURCES[name].name} "
                                f"(exit {proc.returncode}):\n{proc.stderr}")
+        build_log[name] = proc.stderr
         os.replace(tmp, out[name])
     return out
 
 
 _ARGTYPES = {
     "window_match": ("window_match_launch",
-                     [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4),
+                     [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2),
     "hamming_best2": ("masked_best2_launch",
-                      [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4),
+                      [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2),
 }
 
 
@@ -133,22 +145,27 @@ def _check(spec, args, sizes):
 
 
 def _launch(name, args, n1, *ints):
-    """Contiguous copies of ``args``, three (n1,) int32 outputs, one launch
-    on the current stream; raises if the launch was refused."""
-    args = tuple(t.contiguous() for t in args)
-    for t in args[:2]:
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: descriptor banks must be 16-byte aligned")
+    """One (3, n1) int32 output, one launch on the current stream of the
+    tensors' device, and the output's three rows; a view is copied to a
+    contiguous tensor first.  Raises if the launch was refused."""
+    if not all(t.is_contiguous() for t in args):
+        args = tuple(t.contiguous() for t in args)
+    ptrs = [t.data_ptr() for t in args]
+    if ptrs[0] % 16 or ptrs[1] % 16:
+        raise ValueError(f"{name}: descriptor banks must be 16-byte aligned")
     device = args[0].device
-    outs = [torch.empty(n1, dtype=torch.int32, device=device) for _ in range(3)]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _launcher(name)(*(t.data_ptr() for t in args), *ints,
-                              *(o.data_ptr() for o in outs), stream)
+    out = torch.empty((3, n1), dtype=torch.int32, device=device)
+    fn = _launcher(name)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if torch.cuda.current_device() == device.index:
+        err = fn(*ptrs, *ints, out.data_ptr(), stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*ptrs, *ints, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     launches[name] += 1
-    return tuple(outs)
+    return out[0], out[1], out[2]
 
 
 def window_match_reference(desc_q, desc_t, uv_q, uv_t, radius, oct_q, oct_t,

@@ -26,11 +26,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from refactored_orb_slam2_tpu.ops.orb_pattern import BRIEF_PATTERN
-
 from . import fast as fast_ops
 from . import image as image_ops
 from .descriptors import pack_bits
+from .orb_pattern import BRIEF_PATTERN
 from .stereo import stack_pyramid
 
 EDGE_MARGIN = 19       # descriptor sample radius bound (EDGE_THRESHOLD)

@@ -37,8 +37,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from refactored_orb_slam2_tpu.utils import telemetry
-
 from .backend import local_mapping as LM
 from .frontend import tracking_kernels as TK
 from .frontend.frame import FrameData, build_frame_rgbd
@@ -52,6 +50,7 @@ from .ops.image import level_sigma2
 from .ops.orb import level_quotas
 from .optim import bundle_adjustment as BA
 from .optim.pose_opt import optimize_pose
+from .utils import telemetry
 
 
 class TrackState:

@@ -45,6 +45,13 @@ def _random_case(seed, n1, n2, radius_range, band, p_valid, device):
     ), band
 
 
+def _assert_equal_to_plain(got, ref, n1):
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.int32 and g.shape == (n1,)
+        assert torch.equal(g, r)
+
+
 @pytest.mark.parametrize("n1,n2,radius,band,p_valid", [
     (512, 1024, (60.0, 60.0), (-1, 0), 1.0),      # JAX run_selfcheck shape
     (256, 384, (30.0, 120.0), (-1, 1), 0.9),      # JAX run_golden shape
@@ -55,12 +62,8 @@ def test_window_match_kernel_equals_plain(cuda, n1, n2, radius, band, p_valid):
     args, band = _random_case(n1 + n2, n1, n2, radius, band, p_valid, cuda)
     before = cuda_hamming.launches["window_match"]
     got = cuda_hamming.window_match(*args, band)
-    ref = cuda_hamming.window_match_reference(*args, band)
-    torch.cuda.synchronize()
     assert cuda_hamming.launches["window_match"] == before + 1
-    for g, r in zip(got, ref):
-        assert g.dtype == torch.int32 and g.shape == (n1,)
-        assert torch.equal(g, r)
+    _assert_equal_to_plain(got, cuda_hamming.window_match_reference(*args, band), n1)
 
 
 def test_window_match_kernel_on_cpu_copies(cuda):
@@ -71,6 +74,33 @@ def test_window_match_kernel_on_cpu_copies(cuda):
     ref = cuda_hamming.window_match(*(a.cpu() for a in args), band)
     for g, r in zip(got, ref):
         assert torch.equal(g.cpu(), r)
+
+
+@pytest.mark.parametrize("n1,n2,radius,p_valid", [
+    (500, 1031, (20.0, 60.0), 0.9),       # column counts off every alignment
+    (500, 1001, (20.0, 60.0), 0.9),
+    (300, 7, (100.0, 400.0), 0.9),
+    (700, 1, (300.0, 700.0), 0.9),        # one column
+    (1, 1000, (40.0, 80.0), 0.9),         # one row
+    (1, 1, (700.0, 700.0), 1.0),
+    (20000, 1000, (4.0, 20.0), 0.9),      # more rows than one pass of the grid
+    (512, 6000, (10.0, 40.0), 0.9),       # a long bank
+    (300, 20000, (10.0, 40.0), 0.9),      # more columns than a block holds at once
+    (900, 1000, (20.0, 60.0), 0.0),       # nothing valid: no row has a candidate
+])
+def test_window_match_kernel_edges_equal_plain(cuda, n1, n2, radius, p_valid):
+    args, band = _random_case(n1 + n2, n1, n2, radius, (-1, 1), p_valid, cuda)
+    _assert_equal_to_plain(cuda_hamming.window_match(*args, band),
+                           cuda_hamming.window_match_reference(*args, band), n1)
+
+
+def test_window_match_kernel_takes_views(cuda):
+    """Every argument as a non-contiguous view of the same values."""
+    args, band = _random_case(11, 640, 1001, (20.0, 60.0), (-1, 1), 0.9, cuda)
+    views = tuple(t.repeat_interleave(2, dim=0)[::2] for t in args)
+    assert not any(v.is_contiguous() for v in views)
+    _assert_equal_to_plain(cuda_hamming.window_match(*views, band),
+                           cuda_hamming.window_match_reference(*args, band), 640)
 
 
 def _masked_case(seed, n1, n2, density, device):
@@ -98,15 +128,50 @@ def test_hamming_best2_kernel_equals_plain(cuda, n1, n2, density):
     args = _masked_case(n1 + n2, n1, n2, density, cuda)
     before = cuda_hamming.launches["hamming_best2"]
     got = cuda_hamming.hamming_best2(*args)
-    ref = cuda_hamming.hamming_best2_reference(*args)
-    torch.cuda.synchronize()
     assert cuda_hamming.launches["hamming_best2"] == before + 1
-    for g, r in zip(got, ref):
-        assert g.dtype == torch.int32 and g.shape == (n1,)
-        assert torch.equal(g, r)
+    _assert_equal_to_plain(got, cuda_hamming.hamming_best2_reference(*args), n1)
     cpu = cuda_hamming.hamming_best2(*(a.cpu() for a in args))
     for g, r in zip(got, cpu):
         assert torch.equal(g.cpu(), r)
+
+
+@pytest.mark.parametrize("n1,n2,density", [
+    (500, 1031, 0.05), (500, 1001, 0.05), (300, 7, 0.5),   # off every alignment
+    (700, 1, 0.7), (1, 1000, 0.3), (1, 1, 1.0),            # one column, one row
+    (20000, 1000, 0.02),     # more rows than one pass of the grid
+    (512, 6000, 0.05),       # long rows
+    (600, 9000, 0.3),        # several queue groups a row, dense
+    (900, 1000, 0.0),        # every row masked out
+])
+def test_hamming_best2_kernel_edges_equal_plain(cuda, n1, n2, density):
+    args = _masked_case(n1 + n2, n1, n2, density, cuda)
+    got = cuda_hamming.hamming_best2(*args)
+    _assert_equal_to_plain(got, cuda_hamming.hamming_best2_reference(*args), n1)
+    if density == 0.0:
+        d1, i1, d2 = got
+        assert bool((d1 == 1 << 20).all() and (i1 == 0).all() and (d2 == 1 << 20).all())
+
+
+@pytest.mark.parametrize("layout", ["strided", "transposed", "odd offset"])
+@pytest.mark.parametrize("n2", [1000, 1013])
+def test_hamming_best2_kernel_takes_any_mask_layout(cuda, layout, n2):
+    """The mask as a strided view, a transposed view (both copied by the
+    wrapper) and a contiguous tensor that starts 3 bytes into its storage
+    (read in place, from 16-byte words aligned down)."""
+    n1 = 333
+    a, b, mask = _masked_case(n2, n1, n2, 0.1, cuda)
+    if layout == "strided":
+        view = mask.repeat_interleave(2, dim=1)[:, ::2]
+    elif layout == "transposed":
+        view = mask.t().contiguous().t()
+    else:
+        flat = torch.cat([torch.zeros(3, dtype=torch.bool, device=cuda), mask.reshape(-1)])
+        view = flat[3:].view(n1, n2)
+        assert view.is_contiguous() and view.data_ptr() % 16 == 3
+    assert layout == "odd offset" or not view.is_contiguous()
+    assert torch.equal(view, mask)
+    _assert_equal_to_plain(cuda_hamming.hamming_best2(a, b, view),
+                           cuda_hamming.hamming_best2_reference(a, b, mask), n1)
 
 
 def test_slice_on_card_agrees_with_cpu(cuda):

@@ -18,6 +18,7 @@ import pytest
 
 from refactored_orb_slam2_tpu.geometry import se3 as jse3
 from refactored_orb_slam2_tpu.utils.config import LoopConfig
+from refactored_orb_slam2_tpu_torch.io.convert import config_from_reference
 from refactored_orb_slam2_tpu_torch.system import SlamSystem as TSlam
 from test_torch_sequence import CFG, assert_poses_close, lateral_traj, render, run_both
 
@@ -51,7 +52,7 @@ def test_reference_keyframe_fallback():
 def test_loop_closing_raises_where_detection_would_run():
     """With ``kf_gap`` 2 the JAX package runs detection from n_kf 4 on
     (keyframe 3, frame 8 of the scenario); the port raises there."""
-    slam = TSlam(CFG.replace(loop=LoopConfig(kf_gap=2)), device="cpu")
+    slam = TSlam(config_from_reference(CFG.replace(loop=LoopConfig(kf_gap=2))), device="cpu")
     assert slam.loop_closing_enabled
     frames = render(lateral_traj(9))
     for i, (img, depth) in enumerate(frames[:8]):

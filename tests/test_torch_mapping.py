@@ -41,7 +41,7 @@ from refactored_orb_slam2_tpu_torch.frontend import tracking_kernels as TTK
 from refactored_orb_slam2_tpu_torch.geometry.camera import camera_from_config as t_cam
 from refactored_orb_slam2_tpu_torch.geometry.triangulation import triangulate_dlt as t_dlt
 from refactored_orb_slam2_tpu_torch.io.convert import (
-    ba_problem_from_numpy, frame_from_numpy, map_state_from_numpy, map_state_to_numpy,
+    ba_problem_from_numpy, config_from_reference, frame_from_numpy, map_state_from_numpy, map_state_to_numpy,
 )
 from refactored_orb_slam2_tpu_torch.models import map_ops as TMO
 from refactored_orb_slam2_tpu_torch.models import map_state as TMS
@@ -55,6 +55,7 @@ CFG = SystemConfig(
     map=MapConfig(max_keyframes=24, max_points=4096, max_obs_per_point=8,
                   fuse_neighbors=4, triangulate_neighbors=4),
 )
+TCFG = config_from_reference(CFG)        # the port's own config tree
 SF, NL = 1.2, 4
 KF = 3                                  # the keyframe being mapped
 NN = N_NB = 4
@@ -192,7 +193,7 @@ def test_triangulate_with_neighbor_equal(run):
         jnp.int32(run["n_pt"]), max_new=64, scale_factor=SF, n_levels=NL,
         min_baseline_ratio=0.005)
     got, n_got = TLM.triangulate_with_neighbor(
-        _port(S0), KF, nb, t_cam(CFG.camera), run["n_pt"], max_new=64,
+        _port(S0), KF, nb, t_cam(TCFG.camera), run["n_pt"], max_new=64,
         scale_factor=SF, n_levels=NL, min_baseline_ratio=0.005)
     assert int(n_got) == int(n_ref) > 0
     _assert_banks(got, ref, pos_atol=1e-4)
@@ -215,7 +216,7 @@ def test_triangulate_with_neighbors_equal(run, chain, base):
             j_cam(CFG.camera), jnp.int32(pt_base), max_new=64, scale_factor=SF,
             n_levels=NL, min_baseline_ratio=0.005)
     got, n_got = TLM.triangulate_with_neighbors(
-        _port(S0), KF, neighbors.tolist(), t_cam(CFG.camera), pt_base, max_new=64,
+        _port(S0), KF, neighbors.tolist(), t_cam(TCFG.camera), pt_base, max_new=64,
         scale_factor=SF, n_levels=NL, min_baseline_ratio=0.005)
     assert int(n_got) == int(n_ref) > 0
     _assert_banks(got, ref, pos_atol=1e-4)
@@ -224,7 +225,7 @@ def test_triangulate_with_neighbors_equal(run, chain, base):
 def test_fuse_into_keyframes_direction_1_equal(chain):
     S1 = chain["S1"]
     got = TLM.fuse_into_keyframes(
-        _port(S1), np.asarray(chain["ws"][1]).tolist(), t_cam(CFG.camera), budget=1024,
+        _port(S1), np.asarray(chain["ws"][1]).tolist(), t_cam(TCFG.camera), budget=1024,
         scale_factor=SF, n_levels=NL, cand_idx=torch.from_numpy(S1.kf_point_idx[KF]))
     ref = chain["S2"]
     _assert_banks(got, ref)
@@ -234,7 +235,7 @@ def test_fuse_into_keyframes_direction_1_equal(chain):
 
 def test_fuse_into_keyframe_direction_2_equal(chain):
     got = TLM.fuse_into_keyframe(
-        _port(chain["S2"]), KF, t_cam(CFG.camera), torch.from_numpy(chain["tgt"]),
+        _port(chain["S2"]), KF, t_cam(TCFG.camera), torch.from_numpy(chain["tgt"]),
         budget=2048, scale_factor=SF, n_levels=NL)
     _assert_banks(got, chain["S3"])
 
@@ -246,7 +247,7 @@ def test_fuse_single_target_with_candidates_equal(chain):
         jax.tree.map(jnp.asarray, S1), jnp.int32(target), j_cam(CFG.camera), None,
         budget=1024, scale_factor=SF, n_levels=NL, cand_idx=jnp.asarray(S1.kf_point_idx[KF]))
     got = TLM.fuse_into_keyframe(
-        _port(S1), target, t_cam(CFG.camera), budget=1024, scale_factor=SF, n_levels=NL,
+        _port(S1), target, t_cam(TCFG.camera), budget=1024, scale_factor=SF, n_levels=NL,
         cand_idx=torch.from_numpy(S1.kf_point_idx[KF]))
     _assert_banks(got, ref)
 
@@ -292,7 +293,7 @@ def test_gather_ba_window_equal(chain):
 def test_lm_chunk_dense_5_iterations_and_outliers(chain):
     prob_np = chain["gathered"][0]
     jprob = jax.tree.map(jnp.asarray, prob_np)
-    jcam, tcam = j_cam(CFG.camera), t_cam(CFG.camera)
+    jcam, tcam = j_cam(CFG.camera), t_cam(TCFG.camera)
     jp, jx, jl = JBA.lm_chunk(jcam, jprob, jprob.kf_poses, jprob.points, jnp.float32(1e-4),
                               n_iters=5, use_huber=True, solver="dense", n_cg=0)
     tprob = ba_problem_from_numpy(prob_np)

@@ -24,6 +24,7 @@ from refactored_orb_slam2_tpu.ops import stereo as jstereo
 from refactored_orb_slam2_tpu.utils.config import ORBConfig
 from refactored_orb_slam2_tpu_torch.frontend import frame as tframe
 from refactored_orb_slam2_tpu_torch.geometry.camera import Camera as TCamera
+from refactored_orb_slam2_tpu_torch.io.convert import config_from_reference
 from refactored_orb_slam2_tpu_torch.ops import fast as tfast
 from refactored_orb_slam2_tpu_torch.ops import image as timage
 from refactored_orb_slam2_tpu_torch.ops import orb as torb
@@ -32,6 +33,7 @@ from refactored_orb_slam2_tpu_torch.utils import world3d as W
 
 CAM = dict(fx=258.65, fy=258.25, cx=159.3, cy=127.65, bf=20.0, width=320, height=240)
 ORB = ORBConfig(n_features=500, n_levels=4)
+T_ORB = config_from_reference(ORB)       # the port's own ORBConfig
 # the float32 pyramid: products of 320 weights in another order (units of
 # intensity, range 0-255)
 PYR_TOL = 1e-4
@@ -48,7 +50,7 @@ def scene():
     img = np.clip(img, 0, 255).astype(np.uint8).astype(np.float32)
     build = jax.jit(lambda im, d: jframe.build_frame_rgbd(im, d, JCamera.create(**CAM), ORB))
     jf = jax.tree.map(np.array, build(jnp.asarray(img), jnp.asarray(depth)))
-    tf = tframe.build_frame_rgbd(torch.from_numpy(img), torch.from_numpy(depth), cam, ORB)
+    tf = tframe.build_frame_rgbd(torch.from_numpy(img), torch.from_numpy(depth), cam, T_ORB)
     tf = {k: v.numpy() for k, v in vars(tf).items()}
     return img, depth, jf, tf
 

@@ -208,7 +208,7 @@ def test_window_and_octave_band_masks_match_jax():
 # ---------------------------------------------------------------- imports
 def test_port_imports_no_jax():
     """Every module of the port imports in a fresh interpreter without
-    pulling in jax."""
+    pulling in jax or any module of the JAX package."""
     import refactored_orb_slam2_tpu_torch as pkg
 
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -217,6 +217,9 @@ def test_port_imports_no_jax():
         "import importlib, sys\n"
         f"for n in {names!r}: importlib.import_module(n)\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+        "ref = sorted(m for m in sys.modules if m == 'refactored_orb_slam2_tpu'"
+        " or m.startswith('refactored_orb_slam2_tpu.'))\n"
+        "assert not ref, ref\n"
         "print('ok', len(sys.modules))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

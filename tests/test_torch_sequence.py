@@ -29,6 +29,7 @@ from refactored_orb_slam2_tpu.utils.config import (
 )
 from refactored_orb_slam2_tpu.utils.synthetic import SyntheticWorld, ate_rmse
 from refactored_orb_slam2_tpu_torch import system as tsystem
+from refactored_orb_slam2_tpu_torch.io.convert import config_from_reference
 from refactored_orb_slam2_tpu_torch.ops import cuda_hamming
 from refactored_orb_slam2_tpu_torch.system import SlamSystem as TSlam
 
@@ -40,6 +41,7 @@ CFG = SystemConfig(
     map=MapConfig(max_keyframes=24, max_points=4096, max_obs_per_point=8,
                   fuse_neighbors=4, triangulate_neighbors=4),
 )
+TCFG = config_from_reference(CFG)        # the port's own config tree
 WORLD = dict(seed=3, n_points=500, x_range=(-6, 6), y_range=(-2.5, 2.5),
              z_range=(2.5, 10.0), clear_tube=0.0)
 
@@ -60,7 +62,7 @@ def render(traj, blank=()):
     """Host frames (image, metric depth) of the scenario; frames in
     ``blank`` are a flat grey image at 2 m."""
     world = SyntheticWorld.create(**WORLD)
-    cam = TSlam(CFG, device="cpu").cam
+    cam = TSlam(TCFG, device="cpu").cam
     rng = np.random.default_rng(1)
     frames = []
     for i, T in enumerate(traj):
@@ -74,7 +76,7 @@ def render(traj, blank=()):
 def run_both(frames):
     out = {}
     for name in ("jax", "port"):
-        slam = JSlam(CFG) if name == "jax" else TSlam(CFG, device="cpu")
+        slam = JSlam(CFG) if name == "jax" else TSlam(TCFG, device="cpu")
         slam.loop_closing_enabled = False
         returned = [slam.track_rgbd(img, depth, i * 0.1)
                     for i, (img, depth) in enumerate(frames)]

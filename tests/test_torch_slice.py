@@ -18,6 +18,7 @@ from refactored_orb_slam2_tpu.system import SlamSystem as JSlam
 from refactored_orb_slam2_tpu.utils.config import (
     CameraConfig, MapConfig, ORBConfig, SystemConfig,
 )
+from refactored_orb_slam2_tpu_torch.io.convert import config_from_reference
 from refactored_orb_slam2_tpu_torch.ops import cuda_hamming
 from refactored_orb_slam2_tpu_torch.system import SlamSystem as TSlam
 from refactored_orb_slam2_tpu_torch.utils import world3d as W
@@ -29,6 +30,7 @@ CFG = SystemConfig(
     orb=ORBConfig(n_features=500, n_levels=4),
     map=MapConfig(max_keyframes=24, max_points=4096, max_obs_per_point=8),
 )
+TCFG = config_from_reference(CFG)        # the port's own config tree
 N_FRAMES = 6
 
 
@@ -53,7 +55,7 @@ def runs(tmp_path_factory):
     world = W.scene_room(seed=11)
     poses = W.traj_room_orbit(160, seed=5, span=0.45 * np.pi)[:N_FRAMES]
     rng = np.random.default_rng(0)
-    port = TSlam(CFG, device="cpu")
+    port = TSlam(TCFG, device="cpu")
     frames = [world.render(T, port.cam, want_depth=True, noise=2.0, rng=rng)
               for T in poses]
     ref = JSlam(CFG)
@@ -134,9 +136,9 @@ def test_fused_step_goes_through_window_match(runs):
 
 def test_outside_the_slice_raises():
     with pytest.raises(NotImplementedError, match="item 8"):
-        TSlam(CFG.replace(sensor="stereo"), device="cpu")
+        TSlam(TCFG.replace(sensor="stereo"), device="cpu")
     with pytest.raises(NotImplementedError, match="item 12"):
-        TSlam(CFG, device="cpu", pipelined=True)
+        TSlam(TCFG, device="cpu", pipelined=True)
 
 
 def test_motion_failure_raises_naming_item_7():
@@ -146,7 +148,7 @@ def test_motion_failure_raises_naming_item_7():
     (n_kf <= 5) instead of raising.  What item 7 left out, localization-only
     mode (item 7b), raises naming it."""
     world = W.scene_room(seed=11)
-    slam = TSlam(CFG, device="cpu")
+    slam = TSlam(TCFG, device="cpu")
     T = W.traj_room_orbit(160, seed=5, span=0.45 * np.pi)[0]
     assert slam.track_rgbd(*world.render(T, slam.cam, want_depth=True), 0.0) is not None
     blank = torch.full((240, 320), 128, dtype=torch.uint8)

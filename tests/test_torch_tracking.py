@@ -22,7 +22,7 @@ from refactored_orb_slam2_tpu.utils.config import (
 from refactored_orb_slam2_tpu_torch.frontend import tracking_kernels as TTK
 from refactored_orb_slam2_tpu_torch.geometry.camera import camera_from_config
 from refactored_orb_slam2_tpu_torch.io.convert import (
-    frame_from_numpy, map_state_from_numpy, map_state_to_numpy,
+    config_from_reference, frame_from_numpy, map_state_from_numpy, map_state_to_numpy,
 )
 from refactored_orb_slam2_tpu_torch.models import map_ops as TMO
 from refactored_orb_slam2_tpu_torch.models import map_state as TMS
@@ -36,6 +36,7 @@ CFG = SystemConfig(
     orb=ORBConfig(n_features=500, n_levels=4),
     map=MapConfig(max_keyframes=24, max_points=4096, max_obs_per_point=8),
 )
+TCFG = config_from_reference(CFG)        # the port's own config tree
 FLOAT_TOL = 1e-5
 
 
@@ -54,7 +55,7 @@ def _assert_banks(got: dict, ref, names=None):
 
 @pytest.fixture(scope="module")
 def init():
-    cam = camera_from_config(CFG.camera)
+    cam = camera_from_config(TCFG.camera)
     world = W.scene_room(seed=11)
     poses = W.traj_room_orbit(160, seed=5, span=0.45 * np.pi)[:2]
     rng = np.random.default_rng(0)
@@ -76,7 +77,7 @@ def test_initialization_banks_equal(init):
     n = jsys.n_feat_slots
     empty = map_state_from_numpy(_np(JMS.create_empty(CFG.map, n)))
     np.testing.assert_array_equal(
-        map_state_to_numpy(TMS.create_empty(CFG.map, n, "cpu"))["kf_desc"],
+        map_state_to_numpy(TMS.create_empty(TCFG.map, n, "cpu"))["kf_desc"],
         map_state_to_numpy(empty)["kf_desc"])
     frame = frame_from_numpy(f0)
     no_pt = torch.full((n,), -1, dtype=torch.int32)

@@ -13,10 +13,11 @@ import torch
 from refactored_orb_slam2_tpu.utils import world3d as JW
 from refactored_orb_slam2_tpu.utils.config import CameraConfig
 from refactored_orb_slam2_tpu_torch.geometry.camera import camera_from_config
+from refactored_orb_slam2_tpu_torch.io.convert import config_from_reference
 from refactored_orb_slam2_tpu_torch.utils import world3d as TW
 
-CAM = camera_from_config(CameraConfig(fx=129.3, fy=129.1, cx=79.6, cy=63.8,
-                                      width=160, height=120))
+CAM = camera_from_config(config_from_reference(
+    CameraConfig(fx=129.3, fy=129.1, cx=79.6, cy=63.8, width=160, height=120)))
 
 
 @pytest.mark.parametrize("seed", [11, 3])
