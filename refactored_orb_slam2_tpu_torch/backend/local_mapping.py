@@ -27,7 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..frontend.tracking_kernels import project_in_image, scale_table
+from ..frontend.tracking_kernels import project_in_image
 from ..geometry import se3
 from ..geometry.triangulation import triangulate_dlt
 from ..models.map_ops import add_observations, add_rows, nonzero_fixed, set_rows
@@ -35,6 +35,7 @@ from ..models.map_state import (
     MapState, covisibility_matrix, n_observations, predict_scale,
 )
 from ..ops import matching as M
+from ..ops.image import scale_table
 
 
 def _top_k(x: torch.Tensor, k: int):

@@ -4,6 +4,8 @@
   (ORBmatcher.cc:1247-1383);
 - ``match_reference_kf``  = the matching of TrackReferenceKeyFrame
   (Tracking.cc:681-719);
+- ``match_vo_points``     = the temporal points of localization-only mode
+  (UpdateLastFrame, Tracking.cc:724-778) matched like the motion model;
 - ``select_local_points`` = Tracking::UpdateLocalPoints + Frame::isInFrustum
   (Tracking.cc:1090-1113, Frame.cc:284-339) with a static top-k budget;
 - ``match_local_points``  = ORBmatcher::SearchByProjection(Frame, vector)
@@ -12,7 +14,6 @@
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -24,19 +25,12 @@ from ..models.map_state import predict_scale
 from ..ops import cuda_hamming
 from ..ops import matching as M
 from ..ops.descriptors import hamming
+from ..ops.image import scale_table
 
 
 class ProjMatchResult(NamedTuple):
     pt_idx: torch.Tensor     # (N,) map-point slot matched to each feature (-1)
     n_matches: torch.Tensor  # () int32
-
-
-@functools.lru_cache(maxsize=None)
-def scale_table(values: tuple, device: torch.device) -> torch.Tensor:
-    """A per-level constant table as float32 on ``device``, built once per
-    device: a tensor made from Python floats on a CUDA device copies from
-    host memory and synchronizes."""
-    return torch.tensor(values, dtype=torch.float32).to(device)
 
 
 def _radius_scale(scale_factors: np.ndarray, level: torch.Tensor) -> torch.Tensor:
@@ -134,6 +128,64 @@ def match_reference_kf(
     base = torch.full((frame.n_slots,), -1, dtype=torch.int32, device=kf_desc.device)
     return ProjMatchResult(pt_idx=_scatter_to_features(base, res, kf_pt_idx),
                            n_matches=res.mask.sum(dtype=torch.int32))
+
+
+class VoMatchResult(NamedTuple):
+    pw: torch.Tensor         # (N, 3) temporal 3D point per current feature
+    mask: torch.Tensor       # (N,) matched to a temporal point
+    n_matches: torch.Tensor  # () int32
+
+
+def match_vo_points(
+    cam,
+    Tcw_pred: torch.Tensor,     # predicted pose of the current frame
+    frame,                      # current FrameData
+    last_xy: torch.Tensor,      # (N, 2) last frame keypoints
+    last_depth: torch.Tensor,   # (N,) last frame per-feature depth (<= 0 none)
+    last_valid: torch.Tensor,   # (N,)
+    last_pt: torch.Tensor,      # (N,) last frame map-point slots (-1)
+    last_octave: torch.Tensor,
+    last_angle: torch.Tensor,
+    last_desc: torch.Tensor,    # (N, 8)
+    Tcw_last: torch.Tensor,     # last frame pose
+    *,
+    th: float,
+    scale_factors: np.ndarray,
+    nn_max_dist: int = 100,
+    nn_ratio: float = 0.9,
+) -> VoMatchResult:
+    """Localization-only visual-odometry matching (``mbVO``,
+    Tracking.cc:299-361): unproject the last frame's *unmatched* depth
+    features into temporal 3D points and match them into the current frame,
+    so tracking survives unmapped regions with the map frozen."""
+    has_depth = last_valid & (last_depth > 0) & (last_pt < 0)
+    z = torch.where(has_depth, last_depth, 1.0)
+    xc = (last_xy[:, 0] - cam.cx) / cam.fx * z
+    yc = (last_xy[:, 1] - cam.cy) / cam.fy * z
+    pw = se3.transform(se3.inv(Tcw_last), torch.stack([xc, yc, z], dim=-1))   # (N, 3)
+
+    u, v, z_ok, in_img = project_in_image(cam, se3.transform(Tcw_pred, pw))
+    uv = torch.stack([u, v], dim=-1)
+    row_valid = has_depth & z_ok & in_img
+
+    radius = th * _radius_scale(scale_factors, last_octave)
+    geo = M.window_mask(uv, frame.xy, radius)
+    geo = geo & M.octave_band_mask(last_octave, frame.octave, -1, 1)
+    res = M.nn_match(hamming(last_desc, frame.desc), row_valid=row_valid,
+                     col_valid=frame.valid, extra_mask=geo, max_dist=nn_max_dist,
+                     ratio=nn_ratio, mutual=True)
+    res = M.resolve_duplicates(res, frame.n_slots)
+    keep = M.rotation_consistency_mask(last_angle, frame.angle, res)
+
+    # scatter the temporal points onto the current features; rejected rows go
+    # to the dump row, and a column keeps its last row as in JAX
+    col = torch.where(keep, res.idx, frame.n_slots)
+    out_pw = set_rows(torch.zeros((frame.n_slots, 3), dtype=pw.dtype, device=pw.device),
+                      col, pw)
+    out_mask = set_rows(torch.zeros(frame.n_slots, dtype=torch.bool, device=pw.device),
+                        col, keep)
+    return VoMatchResult(pw=out_pw, mask=out_mask,
+                         n_matches=keep.sum(dtype=torch.int32))
 
 
 class LocalPoints(NamedTuple):

@@ -1,8 +1,9 @@
 """State carry-across between the JAX package and the port.
 
-``map_state_from_numpy`` / ``frame_from_numpy`` / ``ba_problem_from_numpy``
-take the JAX package's ``MapState`` / ``FrameData`` / ``BAProblem`` with
-numpy leaves (``jax.tree.map(np.asarray, x)``, or any object or mapping with
+``map_state_from_numpy`` / ``frame_from_numpy`` / ``orb_features_from_numpy``
+/ ``ba_problem_from_numpy`` / ``init_result_from_numpy`` take the JAX
+package's ``MapState`` / ``FrameData`` / ``OrbFeatures`` / ``BAProblem`` /
+``InitResult`` with numpy leaves (``jax.tree.map(np.asarray, x)``, or any object or mapping with
 the same field names) and build the port's; ``map_state_to_numpy`` goes
 back.  A ``MapState`` crosses with every bank, so a map that a JAX run
 built over several keyframes (covisibility, observations, parents) arrives
@@ -23,7 +24,9 @@ import torch
 from .. import config as C
 from ..frontend.frame import FrameData
 from ..models.map_state import MapState
+from ..ops.orb import OrbFeatures
 from ..optim.bundle_adjustment import BAProblem
+from ..solvers.initializer import InitResult
 
 _DESC_FIELDS = ("kf_desc", "pt_desc", "desc")
 
@@ -71,6 +74,17 @@ def map_state_from_numpy(obj, device="cpu") -> MapState:
 def frame_from_numpy(obj, device="cpu") -> FrameData:
     """The port's ``FrameData`` from numpy arrays with the JAX field names."""
     return _from(FrameData, obj, device)
+
+
+def orb_features_from_numpy(obj, device="cpu") -> OrbFeatures:
+    """The port's ``OrbFeatures`` bank from numpy arrays with the JAX field
+    names (the input of ``ops.stereo.stereo_match``)."""
+    return _from(OrbFeatures, obj, device)
+
+
+def init_result_from_numpy(obj, device="cpu") -> InitResult:
+    """The port's ``InitResult`` from numpy arrays with the JAX field names."""
+    return _from(InitResult, obj, device)
 
 
 def ba_problem_from_numpy(obj, device="cpu") -> BAProblem:

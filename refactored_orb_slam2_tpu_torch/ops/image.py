@@ -93,6 +93,14 @@ def scale_factors(n_levels: int, scale_factor: float) -> np.ndarray:
                       dtype=np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def scale_table(values: tuple, device: torch.device) -> torch.Tensor:
+    """A small constant table (per-level scales, a sign pattern) as float32
+    on ``device``, built once per device: a tensor made from Python floats
+    on a CUDA device copies from host memory and synchronizes."""
+    return torch.tensor(values, dtype=torch.float32).to(device)
+
+
 def level_sigma2(n_levels: int, scale_factor: float) -> np.ndarray:
     """Per-octave variance (mvLevelSigma2), the optimizers' information."""
     return scale_factors(n_levels, scale_factor) ** 2

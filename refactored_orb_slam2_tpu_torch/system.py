@@ -1,10 +1,16 @@
-"""SLAM system facade: RGB-D tracking with synchronous local mapping (port
-of system.py).
+"""SLAM system facade: RGB-D, stereo and monocular tracking with synchronous
+local mapping, and localization-only mode (port of system.py).
 
 What runs here, in the JAX package's order:
 
-- frame 0: ``_initialize_depth``, keyframe 0 with one point per feature
-  with depth;
+- RGB-D and stereo, frame 0: ``_initialize_depth``, keyframe 0 with one
+  point per feature with depth (a stereo frame's depth comes from
+  ``ops.stereo.stereo_match``);
+- monocular: ``_initialize_mono`` keeps a reference frame, matches later
+  frames against it and runs the two-view initializer
+  (``solvers.initializer``) until it accepts a reconstruction; then two
+  keyframes, the triangulated points, a 20-iteration BA and the
+  median-depth scale;
 - every tracked frame: ``_fused_step`` (the JAX ``_build_fused_track.step``:
   frame build, motion-model match with the 2x window retry, pose-only LM,
   local-map selection and the fused window matcher (CUDA kernel), a second
@@ -18,15 +24,22 @@ What runs here, in the JAX package's order:
   mapping to completion before the next frame (``_mapping_steps``: work
   sets, triangulation, fusion in both directions, recent-point culling and
   statistics, the dense local BA, keyframe culling), both descriptor
-  searches through the masked best-2 CUDA kernel;
+  searches through the masked best-2 CUDA kernel.  A monocular keyframe
+  gets no depth points: triangulation is its only source of new points;
+- localization-only mode (``activate_localization_mode``): the map is
+  frozen, no keyframe is inserted, and every frame takes the decomposed
+  path ``_track``, which for RGB-D and stereo adds temporal points from the
+  last frame's depth to the motion-model matches (``_track_vo``);
 - the trajectory products, chained through culled keyframes.
 
 Paths outside the port so far raise ``NotImplementedError`` naming the
-ROADMAP.md queue-1 item that brings them: relocalization (10), loop closing
-(11; set ``loop_closing_enabled = False``), localization-only mode (7b),
-stereo (8), monocular (9) and the async modes (12).  A tracked frame reads
+ROADMAP.md queue-1 item that brings them: relocalization (10; from LOST
+with more than 5 keyframes, and from a pure visual-odometry frame of
+localization-only mode), loop closing (11; set ``loop_closing_enabled =
+False``) and the async modes (12).  A tracked frame of the fused path reads
 one (6,) scalar vector and one (2, 4, 4) pose stack back to the host, as
-the JAX facade does; a keyframe adds the reads listed in PERF.md.
+the JAX facade does; a keyframe and a localization-only frame add the reads
+listed in PERF.md.
 """
 
 from __future__ import annotations
@@ -39,18 +52,26 @@ import torch
 
 from .backend import local_mapping as LM
 from .frontend import tracking_kernels as TK
-from .frontend.frame import FrameData, build_frame_rgbd
+from .frontend.frame import (
+    FrameData, build_frame_mono, build_frame_rgbd, build_frame_stereo,
+)
+from .geometry import camera as cam_mod
 from .geometry import se3
 from .geometry.camera import camera_from_config
 from .models import map_ops
 from .models.map_state import (
     create_empty, n_observations, update_point_stats, update_point_stats_subset,
 )
+from .ops import matching as M
+from .ops.descriptors import hamming
 from .ops.image import level_sigma2
 from .ops.orb import level_quotas
 from .optim import bundle_adjustment as BA
 from .optim.pose_opt import optimize_pose
+from .solvers.initializer import initialize_two_view
 from .utils import telemetry
+
+SENSORS = ("rgbd", "stereo", "monocular")
 
 
 class TrackState:
@@ -104,8 +125,9 @@ class FrameLog:
 
 
 class SlamSystem:
-    """RGB-D SLAM on an explicit device.  Feed frames with ``track_rgbd``
-    (host arrays) or ``track_rgbd_device`` (uint8 image and uint16
+    """SLAM on an explicit device for the sensor named by ``config.sensor``.
+    Feed frames with ``track_rgbd`` / ``track_stereo`` / ``track_monocular``
+    (host arrays) or their ``_device`` forms (uint8 images and uint16
     millimetre depth already on ``device``); read the trajectory with
     ``frame_poses`` / ``export_trajectory_tum``."""
 
@@ -124,12 +146,10 @@ class SlamSystem:
                 "async, pipelined and cooperative modes arrive with ROADMAP.md "
                 "queue 1 item 12; the port runs the synchronous mode"
             )
-        if config.sensor != "rgbd":
-            raise NotImplementedError(
-                f"sensor {config.sensor!r}: stereo arrives with ROADMAP.md queue 1 "
-                "item 8 and monocular with item 9; the port tracks RGB-D"
-            )
+        if config.sensor not in SENSORS:
+            raise ValueError(f"sensor {config.sensor!r}: expected one of {SENSORS}")
         self.cfg = config
+        self.sensor = config.sensor
         self.device = torch.device(device)
         self.cam = camera_from_config(config.camera)
 
@@ -154,7 +174,8 @@ class SlamSystem:
         # run that would reach loop detection raises unless this is False
         self.loop_closing_enabled = True
         # which tracking paths fired
-        self.stats = {"motion_tracks": 0, "ref_kf_tracks": 0}
+        self.stats = {"motion_tracks": 0, "ref_kf_tracks": 0, "vo_tracks": 0}
+        self.localization_only = False
         self.frame_id = -1
         self.reset()
 
@@ -177,53 +198,170 @@ class SlamSystem:
         # culled keyframes: slot -> (T_this_to_parent, parent slot), so the
         # trajectory chains through the spanning tree (System.cc:372-390)
         self.culled_chain: dict[int, tuple[np.ndarray, int]] = {}
+        # the monocular initializer's reference frame
+        self._init_ref: Optional[FrameData] = None
+        # localization-only visual-odometry flag (mbVO, Tracking.cc:131)
+        self.mb_vo = False
 
     def activate_localization_mode(self):
-        """System::ActivateLocalizationMode (System.cc:311-319)."""
-        raise NotImplementedError(
-            "localization-only mode arrives with ROADMAP.md queue 1 item 7b"
-        )
+        """Track against the frozen map without inserting keyframes
+        (System::ActivateLocalizationMode, System.cc:311-319).  Mapping is
+        synchronous, so nothing is in flight to wait for."""
+        self.localization_only = True
+
+    def deactivate_localization_mode(self):
+        self.localization_only = False
 
     # ------------------------------------------------------------- tracking
+    def _to_device(self, host: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(host).to(self.device)
+
+    def track_stereo(self, img_l, img_r, timestamp: float) -> Optional[np.ndarray]:
+        """Host frame: rectified grayscale left and right images in [0, 255]."""
+        return self._track_entry(self._to_device(_encode_img(img_l)),
+                                 self._to_device(_encode_img(img_r)), timestamp)
+
     def track_rgbd(self, img, depth, timestamp: float) -> Optional[np.ndarray]:
         """Host frame: grayscale image in [0, 255] and depth in meters."""
-        return self._track_entry(
-            torch.from_numpy(_encode_img(img)).to(self.device),
-            torch.from_numpy(_encode_depth(depth)).to(self.device),
-            timestamp,
-        )
+        return self._track_entry(self._to_device(_encode_img(img)),
+                                 self._to_device(_encode_depth(depth)), timestamp)
 
+    def track_monocular(self, img, timestamp: float) -> Optional[np.ndarray]:
+        """Host frame: grayscale image in [0, 255]."""
+        return self._track_entry(self._to_device(_encode_img(img)), None, timestamp)
+
+    # Frames already in the wire encoding (uint8 grayscale, uint16 millimetre
+    # depth) and on ``self.device``.
     def track_rgbd_device(self, img_u8: torch.Tensor, depth_u16: torch.Tensor,
                           timestamp: float) -> Optional[np.ndarray]:
-        """Frame already in the wire encoding and on ``self.device``."""
         return self._track_entry(img_u8, depth_u16, timestamp)
+
+    def track_stereo_device(self, img_l_u8: torch.Tensor, img_r_u8: torch.Tensor,
+                            timestamp: float) -> Optional[np.ndarray]:
+        return self._track_entry(img_l_u8, img_r_u8, timestamp)
+
+    def track_monocular_device(self, img_u8: torch.Tensor,
+                               timestamp: float) -> Optional[np.ndarray]:
+        return self._track_entry(img_u8, None, timestamp)
 
     def _track_entry(self, raw_a, raw_b, timestamp: float):
         self.frame_id += 1
-        if self.state == TrackState.OK:
+        if self.state == TrackState.OK and not self.localization_only:
             return self._track_fused(raw_a, raw_b, timestamp)
+        # initialization, a frame after a loss and localization-only frames
+        # run the decomposed steps
         return self._track(self._build_frame(raw_a, raw_b), timestamp)
 
     def _build_frame(self, raw_a, raw_b) -> FrameData:
-        return build_frame_rgbd(_decode_img(raw_a), _decode_depth(raw_b),
-                                self.cam, self.cfg.orb)
+        """``raw_b`` is the depth map (RGB-D), the right image (stereo) or
+        None (monocular)."""
+        if self.sensor == "stereo":
+            return build_frame_stereo(_decode_img(raw_a), _decode_img(raw_b),
+                                      self.cam, self.cfg.orb)
+        if self.sensor == "rgbd":
+            return build_frame_rgbd(_decode_img(raw_a), _decode_depth(raw_b),
+                                    self.cam, self.cfg.orb)
+        return build_frame_mono(_decode_img(raw_a), self.cam, self.cfg.orb)
+
+    @property
+    def _motion_window(self) -> float:
+        """SearchByProjection window of the motion model, in pixels at level
+        0 (Tracking.cc:795-799)."""
+        return 7.0 if self.sensor == "stereo" else 15.0
+
+    def _relocalize(self, why: str):
+        raise NotImplementedError(
+            f"frame {self.frame_id}: {why}; relocalization arrives with "
+            "ROADMAP.md queue 1 item 10"
+        )
 
     def _track(self, frame: FrameData, timestamp: float) -> Optional[np.ndarray]:
-        """The decomposed path: initialization, or a frame after a loss."""
+        """The decomposed path: initialization, a frame after a loss, and
+        every frame of localization-only mode."""
         if self.state == TrackState.NOT_INITIALIZED:
-            if not self._initialize_depth(frame):
+            ok = (self._initialize_mono(frame) if self.sensor == "monocular"
+                  else self._initialize_depth(frame))
+            if not ok:
                 return None
             self.state = TrackState.OK
             self._log_frame(timestamp, lost=False)
             return self.last_pose.cpu().numpy()
-        # LOST: reset when lost right after initialization (Tracking.cc:421-428)
-        if self.n_kf <= 5:
-            self.reset()
+
+        if self.state == TrackState.LOST:
+            # reset when lost right after initialization (Tracking.cc:421-428)
+            if self.n_kf <= 5 and not self.localization_only:
+                self.reset()
+                return None
+            self._relocalize(f"tracking is lost with {self.n_kf} keyframes")
+        if self.localization_only and self.mb_vo:
+            # VO mode: the map is out of view, and the JAX package tries to
+            # relocalize on every such frame (Tracking.cc:312-361)
+            self._relocalize("the last localization-only frame had under 10 map "
+                             "matches (visual odometry only)")
+
+        # --- pose prediction + motion-model tracking -----------------------
+        pose0 = (self.velocity @ self.last_pose if self.velocity is not None
+                 else self.last_pose)
+        th = self._motion_window
+        pt_idx, n_m = self._motion_track(frame, pose0, th)
+        if int(n_m) < 20:               # widen the window 2x (Tracking.cc:802)
+            pt_idx, n_m = self._motion_track(frame, pose0, 2 * th)
+
+        pose, ok, vo_n_tot = pose0, False, 0
+        if self.localization_only and self.sensor != "monocular":
+            # localization-only tracking always adds temporal points from the
+            # last frame's depth to the motion model (UpdateLastFrame,
+            # Tracking.cc:724-778); mbVO = the map matches collapsed
+            # (Tracking.cc:299-361)
+            pose, pt_idx, n_map, vo_n_tot = self._track_vo(frame, pose0, pt_idx, th)
+            ok = vo_n_tot > 20
+            self.mb_vo = ok and n_map < 10
+            if self.mb_vo:
+                self.stats["vo_tracks"] += 1
+        elif int(n_m) >= 20:
+            seed = (pose0 if self.cfg.tracking.seed_pose_opt_from_prediction
+                    else self.last_pose)
+            pose, pt_idx, n_inliers = self._pose_opt_against_map(frame, seed, pt_idx)
+            ok = int(n_inliers) >= self.cfg.tracking.min_inliers_track
+            if ok:
+                self.stats["motion_tracks"] += 1
+
+        if not ok:
+            ok, pose2, pt2 = self._track_reference_keyframe(frame)
+            if ok:
+                pose, pt_idx = pose2, pt2
+                self.stats["ref_kf_tracks"] += 1
+                self.mb_vo = False
+        if not ok:
+            self.state = TrackState.LOST
+            self._log_frame(timestamp, lost=True)
             return None
-        raise NotImplementedError(
-            f"frame {self.frame_id}: tracking is lost with {self.n_kf} keyframes; "
-            "relocalization arrives with ROADMAP.md queue 1 item 10"
-        )
+
+        if self.localization_only and self.mb_vo:
+            # pure-VO frame: no local map in view (Tracking.cc:330-346)
+            return self._finish_vo_frame(frame, pose, pt_idx, timestamp)
+
+        # --- track local map -----------------------------------------------
+        pose, pt_idx, n_map_inliers = self._track_local_map(frame, pose, pt_idx)
+        n_map_inliers = int(n_map_inliers)
+        if n_map_inliers < self.cfg.tracking.min_inliers_local_map:
+            if self.localization_only and vo_n_tot > 20:
+                # where the reference goes LOST (Tracking.cc:352-361) the JAX
+                # package degrades to VO: the map is frozen and cannot be
+                # corrupted, and frame-to-frame VO is still strong
+                self.mb_vo = True
+                self.stats["vo_tracks"] += 1
+                return self._finish_vo_frame(frame, pose, pt_idx, timestamp)
+            self.state = TrackState.LOST
+            self._log_frame(timestamp, lost=True)
+            return None
+
+        self._advance(frame, pose, pt_idx)
+        if (not self.localization_only
+                and self._need_new_keyframe(frame, pt_idx, n_map_inliers)):
+            self._create_keyframe(frame, pose, pt_idx)
+        self._log_frame(timestamp, lost=False)
+        return pose.cpu().numpy()
 
     def _fused_step(self, raw_a, raw_b):
         """The whole per-frame OK-state path as device work with no host
@@ -231,7 +369,7 @@ class SlamSystem:
         cam, cfg, m = self.cam, self.cfg, self.map
         n_levels = cfg.orb.n_levels
         P = m.pt_pos.shape[0]
-        th = 15.0
+        th = self._motion_window
         frame = self._build_frame(raw_a, raw_b)
         last = self.last_frame
         pose0 = (self.velocity @ self.last_pose if self.velocity is not None
@@ -342,11 +480,7 @@ class SlamSystem:
             self._log_frame(timestamp, lost=True)
             return None
 
-        self.velocity = pose @ se3.inv(self.last_pose)
-        self.last_pose = pose
-        self.last_frame = frame
-        self.last_pt_idx = pt_idx
-        self.state = TrackState.OK
+        self._advance(frame, pose, pt_idx)
         if self._need_new_keyframe(frame, pt_idx, n_map_inliers, close_counts):
             self._create_keyframe(frame, pose, pt_idx)
             Tcr_np = None   # the reference keyframe changed; recompute
@@ -358,6 +492,52 @@ class SlamSystem:
         return self._commit_fused(self._fused_step(raw_a, raw_b), timestamp)
 
     # ----------------------------------------------------------- sub-steps
+    def _advance(self, frame: FrameData, pose, pt_idx):
+        """The tracker's state after a tracked frame."""
+        self.velocity = pose @ se3.inv(self.last_pose)
+        self.last_pose = pose
+        self.last_frame = frame
+        self.last_pt_idx = pt_idx
+        self.state = TrackState.OK
+
+    def _finish_vo_frame(self, frame: FrameData, pose, pt_idx, timestamp):
+        """A localization-only frame tracked by visual odometry alone (no
+        local map)."""
+        self._advance(frame, pose, pt_idx)
+        self._log_frame(timestamp, lost=False)
+        return pose.cpu().numpy()
+
+    def _motion_track(self, frame: FrameData, pose0, th: float):
+        last, m = self.last_frame, self.map
+        res = TK.match_motion_model(
+            self.cam, pose0, frame, self.last_pt_idx, last.octave,
+            m.pt_pos, m.pt_valid, m.pt_desc, last.angle,
+            th=th, scale_factors=self.scale_factors, nn_max_dist=75,
+        )
+        return res.pt_idx, res.n_matches
+
+    def _track_vo(self, frame: FrameData, pose0, pt_idx, th: float):
+        """The surviving map matches together with temporal points from the
+        last frame's depth, pose-optimized over the union.  Returns (pose,
+        map point per feature, map inliers, all inliers); one host read."""
+        last, m = self.last_frame, self.map
+        res = TK.match_vo_points(
+            self.cam, pose0, frame, last.xy, last.depth, last.valid,
+            self.last_pt_idx, last.octave, last.angle, last.desc, self.last_pose,
+            th=2 * th, scale_factors=self.scale_factors,
+        )
+        p = torch.clamp(pt_idx, min=0).long()
+        map_valid = (pt_idx >= 0) & m.pt_valid[p]
+        pw = torch.where(map_valid[:, None], m.pt_pos[p], res.pw)
+        n_levels = self.cfg.orb.n_levels
+        inv_s2 = self.inv_sigma2_table[torch.clamp(frame.octave, 0, n_levels - 1).long()]
+        result = optimize_pose(self.cam, self.last_pose, pw, frame.uvr, inv_s2,
+                               map_valid | res.mask, frame.uvr[:, 2] >= 0)
+        map_inlier = result.inlier & map_valid
+        n_map, n_tot = torch.stack([map_inlier.sum(dtype=torch.int32),
+                                    result.n_inliers.to(torch.int32)]).tolist()
+        return result.Tcw, torch.where(map_inlier, pt_idx, -1), n_map, n_tot
+
     def _set_ref_kf(self, kf_slot: int):
         """Reference keyframe and its tracked-landmark count
         (KeyFrame::TrackedMapPoints, Tracking.cc:887-899)."""
@@ -412,9 +592,11 @@ class SlamSystem:
 
     # ------------------------------------------------------- initialization
     def _initialize_depth(self, frame: FrameData) -> bool:
-        """RGB-D bootstrap (Tracking::StereoInitialization,
+        """Stereo and RGB-D bootstrap (Tracking::StereoInitialization,
         Tracking.cc:454-503): enough features, then one point per feature
         with depth."""
+        if self.sensor == "monocular":
+            return False
         n_valid = int(frame.valid.sum())
         need = min(500, int(0.6 * self.n_feat_slots))
         if n_valid < need:
@@ -440,6 +622,120 @@ class SlamSystem:
         self.last_kf_frame_id = self.frame_id
         return True
 
+    def _initialize_mono(self, frame: FrameData) -> bool:
+        """Monocular two-view bootstrap (Tracking::MonocularInitialization +
+        CreateInitialMapMonocular, Tracking.cc:505-666): windowed matching
+        against a stored reference frame, batched H/F RANSAC, the
+        triangulated initial map, a 20-iteration BA and the median-depth
+        scale normalization.  The minimal sets are drawn from a CPU
+        generator seeded with the frame id."""
+        n_valid = int(frame.valid.sum())
+        if self._init_ref is None:
+            if n_valid >= 100:
+                self._init_ref = frame
+            return False
+        if n_valid < 100:
+            self._init_ref = None
+            return False
+        ref = self._init_ref
+
+        # SearchForInitialization (ORBmatcher.cc:388-492): window 100 px,
+        # ratio 0.9, mutual best.  The reference searches level 0 only but
+        # doubles the feature budget of init frames (Tracking.cc:121); with
+        # the normal budget levels 0-1 are admitted instead.
+        geo = M.window_mask(ref.xy, frame.xy, 100.0)
+        geo = geo & (ref.octave[:, None] <= 1) & (frame.octave[None, :] <= 1)
+        res = M.nn_match(hamming(ref.desc, frame.desc), row_valid=ref.valid,
+                         col_valid=frame.valid, extra_mask=geo, max_dist=50,
+                         ratio=0.9, mutual=True)
+        keep = M.rotation_consistency_mask(ref.angle, frame.angle, res)
+        if int(keep.sum()) < 60:
+            self._init_ref = frame      # restart with this frame (Tracking.cc:540)
+            return False
+
+        feat1 = torch.clamp(res.idx, min=0).long()
+        xn1 = cam_mod.pixel_to_normalized(self.cam, ref.xy)
+        xn2 = cam_mod.pixel_to_normalized(self.cam, frame.xy)[feat1]
+        gen = torch.Generator(device="cpu")
+        gen.manual_seed(self.frame_id)
+        init = initialize_two_view(xn1, xn2, keep, gen, sigma_px=1.0,
+                                   focal=float(self.cfg.camera.fx))
+
+        # median depth of the good points (Tracking.cc:618-642): the mean of
+        # the two middle values, as numpy.median
+        good = init.inliers
+        z_sorted = torch.sort(torch.where(good, init.points3d[:, 2], float("inf"))).values
+        n_good = good.sum()
+        mid = torch.stack([torch.clamp(n_good - 1, min=0) // 2, n_good // 2])
+        med_depth = z_sorted[mid].mean()
+        success, med, n_new = torch.stack(
+            [init.success.to(torch.float32), med_depth, n_good.to(torch.float32)]).tolist()
+        if not success:
+            return False
+        if not med > 0:
+            self._init_ref = None
+            return False
+        n_new = int(n_new)
+        scale = 1.0 / med_depth
+        pos = init.points3d * scale
+        T1 = torch.eye(4, dtype=torch.float32, device=self.device)
+        T2 = se3.from_rt(init.R21, init.t21 * scale)
+
+        N = frame.n_slots
+        no_pt = torch.full((N,), -1, dtype=torch.int32, device=self.device)
+        kf0 = self._insert_keyframe_arrays(ref, T1, no_pt, parent=-1)
+        kf1 = self._insert_keyframe_arrays(frame, T2, no_pt, parent=kf0)
+
+        # the triangulated points, observed by both keyframes: good match i
+        # (feature i of the reference frame, feature feat1[i] of this one)
+        # takes slot n_pt + its rank among the good
+        m = self.map
+        P = m.pt_pos.shape[0]
+        slot = self.n_pt + torch.cumsum(good, dim=0) - 1
+        rows = torch.where(good, slot, P)                  # P = dropped
+        slot32 = slot.to(torch.int32)
+        dist_v = torch.linalg.norm(pos, dim=1)
+        sfac = self.cfg.orb.scale_factor
+        max_d = dist_v * sfac ** ref.octave.to(torch.float32)
+        feat0 = torch.arange(N, dtype=torch.int32, device=self.device)
+        obs_kf = map_ops.set_rows(map_ops.set_rows(m.pt_obs_kf, rows, kf0, col=0),
+                                  rows, kf1, col=1)
+        obs_feat = map_ops.set_rows(map_ops.set_rows(m.pt_obs_feat, rows, feat0, col=0),
+                                    rows, feat1.to(torch.int32), col=1)
+        kf_point_idx = m.kf_point_idx.clone()
+        kf_point_idx[kf0] = torch.where(good, slot32, m.kf_point_idx[kf0])
+        kf_point_idx[kf1] = map_ops.set_rows(m.kf_point_idx[kf1],
+                                             torch.where(good, feat1, N), slot32)
+        self.map = m.replace(
+            pt_pos=map_ops.set_rows(m.pt_pos, rows, pos),
+            pt_valid=map_ops.set_rows(m.pt_valid, rows, True),
+            pt_desc=map_ops.set_rows(m.pt_desc, rows, ref.desc),
+            pt_normal=map_ops.set_rows(
+                m.pt_normal, rows, pos / torch.clamp(dist_v, min=1e-9)[:, None]),
+            pt_min_dist=map_ops.set_rows(
+                m.pt_min_dist, rows, max_d / sfac ** (self.cfg.orb.n_levels - 1)),
+            pt_max_dist=map_ops.set_rows(m.pt_max_dist, rows, max_d),
+            pt_ref_kf=map_ops.set_rows(m.pt_ref_kf, rows, kf1),
+            pt_first_kf=map_ops.set_rows(m.pt_first_kf, rows, kf0),
+            pt_obs_kf=obs_kf,
+            pt_obs_feat=obs_feat,
+            kf_point_idx=kf_point_idx,
+        )
+        self.n_pt += n_new
+
+        # init global BA, 20 iterations (Tracking.cc:618)
+        slots = torch.arange(self.map.kf_valid.shape[0], device=self.device)
+        self._windowed_ba(slots == kf1, slots == kf0, 20, 0)
+        self.map = update_point_stats(self.map, scale_factor=sfac,
+                                      n_levels=self.cfg.orb.n_levels)
+        self.last_pose = self.map.kf_pose[kf1]
+        self.last_frame = frame
+        self.last_pt_idx = self.map.kf_point_idx[kf1]
+        self._set_ref_kf(kf1)
+        self.last_kf_frame_id = self.frame_id
+        self._init_ref = None
+        return True
+
     # ----------------------------------------------------------- keyframes
     def _need_new_keyframe(self, frame: FrameData, pt_idx, n_inliers: int,
                            close_counts: Optional[tuple] = None) -> bool:
@@ -456,18 +752,23 @@ class SlamSystem:
             return False
         frames_since = self.frame_id - self.last_kf_frame_id
         ref_matches = self._ref_matches
-        th_ratio = 0.4 if self.n_kf < 2 else 0.75     # thRefRatio, Tracking.cc:922-928
-        if close_counts is None:
-            d = frame.depth.cpu().numpy()
-            pid = pt_idx.cpu().numpy()
-            close = (d > 0) & (d < self.th_depth_m)
-            close_counts = (int((close & (pid >= 0)).sum()),
-                            int((close & (pid < 0)).sum()))
-        tracked_close, untracked_close = close_counts
-        need_close = tracked_close < 100 and untracked_close > 70
+        mono = self.sensor == "monocular"
+        # thRefRatio (Tracking.cc:922-928): 0.9 for monocular, 0.4 with a
+        # near-empty map, 0.75 otherwise
+        th_ratio = 0.9 if mono else 0.4 if self.n_kf < 2 else 0.75
+        need_close = False
+        if not mono:
+            if close_counts is None:
+                d = frame.depth.cpu().numpy()
+                pid = pt_idx.cpu().numpy()
+                close = (d > 0) & (d < self.th_depth_m)
+                close_counts = (int((close & (pid >= 0)).sum()),
+                                int((close & (pid < 0)).sum()))
+            tracked_close, untracked_close = close_counts
+            need_close = tracked_close < 100 and untracked_close > 70
         c1a = frames_since >= self.cfg.tracking.max_frames_between_kf
         c1b = frames_since >= self.cfg.tracking.min_frames_between_kf
-        c1c = n_inliers < ref_matches * 0.25 or need_close
+        c1c = not mono and (n_inliers < ref_matches * 0.25 or need_close)
         c2 = (n_inliers < ref_matches * th_ratio or need_close) and n_inliers > 15
         return bool((c1a or c1b or c1c) and c2)
 
@@ -488,8 +789,10 @@ class SlamSystem:
 
     def _insert_kf_with_points(self, frame: FrameData, pose, pt_idx) -> int:
         kf_slot = self._insert_keyframe_arrays(frame, pose, pt_idx, parent=self.ref_kf)
-        # close points for untracked features (CreateNewKeyFrame,
-        # Tracking.cc:976-1023)
+        if self.sensor == "monocular":
+            return kf_slot
+        # stereo and RGB-D: close points for untracked features
+        # (CreateNewKeyFrame, Tracking.cc:976-1023)
         cap = self.map.pt_pos.shape[0]
         if self.n_pt >= cap - 128:
             telemetry.warn(
@@ -532,8 +835,9 @@ class SlamSystem:
         completion: work sets, triangulation, fusion, recent-point culling
         with the statistics refresh, the triangulation reconcile, the local
         BA, keyframe culling."""
-        nn = self.cfg.map.fuse_neighbors or 10
-        n_nb = self.cfg.map.triangulate_neighbors or 10
+        default_nb = 20 if self.sensor == "monocular" else 10
+        nn = self.cfg.map.fuse_neighbors or default_nb
+        n_nb = self.cfg.map.triangulate_neighbors or default_nb
         t_cap = 3 * nn + 2
         work = self._work_sets(kf_slot, nn=nn, t_cap=t_cap, n_neighbors=n_nb)
         tri_nb, fuse_slots, fuse_slots_dev, window, fixed, cull_cands = work
@@ -581,7 +885,9 @@ class SlamSystem:
         self.map, n_new = LM.triangulate_with_neighbors(
             self.map, kf_slot, neighbors, self.cam, pt_base, max_new=64,
             scale_factor=self.cfg.orb.scale_factor, n_levels=self.cfg.orb.n_levels,
-            min_baseline_ratio=0.005,     # RGB-D; mono would take 0.01
+            # mono requires a baseline of 1% of the median depth
+            # (LocalMapping.cc:219)
+            min_baseline_ratio=0.01 if self.sensor == "monocular" else 0.005,
         )
         self.n_pt = min(pt_base + 64 * len(neighbors), cap)
         if self.n_pt >= cap - 64:

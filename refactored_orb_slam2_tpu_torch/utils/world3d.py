@@ -1,5 +1,6 @@
 """Raycast renderer for rendered test and smoke fixtures (port of the parts
-of utils/world3d.py that the RGB-D room fixture uses).
+of utils/world3d.py that the room fixture uses: RGB-D, stereo pairs and
+monocular images).
 
 The scene and trajectory builders are numpy and produce the same arrays as
 the JAX module's; the raycaster is the same ray/plane arithmetic and
@@ -110,7 +111,7 @@ def box_surfaces(center, size, seed, inward=False, albedo=1.0):
     ]
 
 
-_CHUNK = 16384  # rays per step: bounds the (chunk, S) temporaries
+_CHUNK = 16384  # rays per step on the CPU: bounds the (chunk, S) temporaries
 
 
 def _raycast(packed, light, ambient, R, t, h, w, fx, fy, cx, cy, noise_img):
@@ -127,9 +128,13 @@ def _raycast(packed, light, ambient, R, t, h, w, fx, fy, cx, cy, noise_img):
     oe_u = ((o[None, :] - p0) * eu).sum(-1)
     oe_v = ((o[None, :] - p0) * ev).sum(-1)
 
+    # On a GPU the whole frame is one step: every step costs the same few
+    # hundred launches whatever its size, the rays do not depend on each
+    # other, and a frame's temporaries fit easily.
+    chunk = dirs_c.shape[0] if dev.type == "cuda" else _CHUNK
     imgs, depths = [], []
-    for s in range(0, dirs_c.shape[0], _CHUNK):
-        dc = dirs_c[s:s + _CHUNK]
+    for s in range(0, dirs_c.shape[0], chunk):
+        dc = dirs_c[s:s + chunk]
         dirs = dc @ R                                # (C, 3) world rays
         dn = dirs @ normal.T                         # (C, S)
         dn = torch.where(torch.abs(dn) < 1e-9, 1e-9, dn)
@@ -211,6 +216,31 @@ class World3D:
         img, depth = self._render(Tcw, cam, noise, rng, torch.device(device))
         img = img.cpu().numpy()
         return (img, depth.cpu().numpy()) if want_depth else img
+
+    @staticmethod
+    def _right_pose(Tcw: np.ndarray, cam) -> np.ndarray:
+        """The right camera's pose: displaced by the baseline bf / fx along
+        the camera's x axis."""
+        T_rl = np.eye(4, dtype=np.float32)
+        T_rl[0, 3] = -float(cam.bf) / float(cam.fx)
+        return T_rl @ Tcw
+
+    def render_stereo(self, Tcw: np.ndarray, cam, noise: float = 0.0, rng=None,
+                      device="cpu"):
+        """Left/right pair of rectified (H, W) float32 numpy images."""
+        left = self.render(Tcw, cam, noise=noise, rng=rng, device=device)
+        right = self.render(self._right_pose(Tcw, cam), cam, noise=noise, rng=rng,
+                            device=device)
+        return left, right
+
+    def render_stereo_device(self, Tcw: np.ndarray, cam, noise: float = 0.0,
+                             rng=None, device="cuda"):
+        """Left/right pair that stays on ``device`` as uint8, for
+        ``SlamSystem.track_stereo_device``."""
+        left = self.render_device(Tcw, cam, noise=noise, rng=rng, device=device)
+        right = self.render_device(self._right_pose(Tcw, cam), cam, noise=noise,
+                                   rng=rng, device=device)
+        return left, right
 
     def render_device(self, Tcw: np.ndarray, cam, want_depth: bool = False,
                       noise: float = 0.0, rng=None, device="cuda"):

@@ -1,6 +1,7 @@
 """The port's own copies of the JAX package's JAX-free modules stay equal to
 the originals: the config tree (classes, fields, defaults, the settings
-loader), the rBRIEF pattern table and the telemetry counters.  Exact
+loader), the per-dataset presets, the rBRIEF pattern table and the telemetry
+counters.  Exact
 equality throughout: these are settings and data, not arithmetic.
 """
 
@@ -12,10 +13,12 @@ import pytest
 
 from refactored_orb_slam2_tpu.ops import orb_pattern as j_pattern
 from refactored_orb_slam2_tpu.utils import config as j_config
+from refactored_orb_slam2_tpu.utils import presets as j_presets
 from refactored_orb_slam2_tpu.utils import telemetry as j_telemetry
 from refactored_orb_slam2_tpu_torch import config as t_config
 from refactored_orb_slam2_tpu_torch.io.convert import config_from_reference
 from refactored_orb_slam2_tpu_torch.ops import orb_pattern as t_pattern
+from refactored_orb_slam2_tpu_torch.utils import presets as t_presets
 from refactored_orb_slam2_tpu_torch.utils import telemetry as t_telemetry
 
 CLASSES = ("CameraConfig", "ORBConfig", "MatcherConfig", "TrackingConfig",
@@ -124,6 +127,34 @@ def test_config_from_reference_takes_a_part_and_refuses_strangers():
 
     with pytest.raises(AttributeError):
         config_from_reference(Unknown())
+
+
+@pytest.mark.parametrize("name", j_presets.preset_names())
+def test_preset_equals_the_reference(name):
+    j, t = j_presets.get_preset(name), t_presets.get_preset(name)
+    assert isinstance(t, t_config.SystemConfig)
+    assert type(t.camera) is t_config.CameraConfig
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert config_from_reference(j) == t
+    assert t.sensor == {"mono": "monocular", "stereo": "stereo", "rgbd": "rgbd"}[
+        name.split("_")[0]]
+
+
+def test_presets_module_agrees_beyond_the_named_presets():
+    assert t_presets.preset_names() == j_presets.preset_names()
+    assert len(t_presets.preset_names()) == 14
+    over = dict(sensor="stereo", vocab_path="v.npz")
+    assert (dataclasses.asdict(t_presets.get_preset("stereo_euroc", **over))
+            == dataclasses.asdict(j_presets.get_preset("stereo_euroc", **over)))
+    with pytest.raises(KeyError, match="unknown preset"):
+        t_presets.get_preset("stereo_mars")
+    for seq in (0, 2, 3, 4, 10):
+        for sensor in ("stereo", "monocular"):
+            assert (dataclasses.asdict(t_presets.kitti_preset_for_sequence(seq, sensor))
+                    == dataclasses.asdict(j_presets.kitti_preset_for_sequence(seq, sensor)))
+    assert t_presets.EUROC_RECTIFICATION.keys() == j_presets.EUROC_RECTIFICATION.keys()
+    for key, val in j_presets.EUROC_RECTIFICATION.items():
+        np.testing.assert_array_equal(t_presets.EUROC_RECTIFICATION[key], val)
 
 
 def test_brief_pattern_tables_are_equal():

@@ -47,6 +47,12 @@ from refactored_orb_slam2_tpu_torch.models import map_ops as TMO
 from refactored_orb_slam2_tpu_torch.models import map_state as TMS
 from refactored_orb_slam2_tpu_torch.optim import bundle_adjustment as TBA
 
+# One intra-op thread: at these sizes PyTorch's threads gain nothing, and
+# several test workers with a thread per core each spin against one another.
+# Every file that runs the port's whole system sets it, so the setting holds
+# whichever files a run selects.
+torch.set_num_threads(1)
+
 CFG = SystemConfig(
     sensor="rgbd",
     camera=CameraConfig(fx=400.0, fy=400.0, cx=160.0, cy=120.0, bf=200.0,

@@ -25,6 +25,14 @@ from refactored_orb_slam2_tpu_torch.geometry import se3 as tse3
 from refactored_orb_slam2_tpu_torch.ops import descriptors as tdesc
 from refactored_orb_slam2_tpu_torch.ops import matching as tm
 
+# One intra-op thread.  At the tests' sizes PyTorch's threads gain nothing,
+# and six workers with a thread per core each spin against one another: the
+# port's tests took 893 s on 6 workers of an 8-core host with the default
+# and 120 s with one thread.  The files that run the port's whole system
+# (test_torch_sequence.py and those that import it, test_torch_slice.py,
+# test_torch_mapping.py, test_torch_tracking.py) set it themselves.
+torch.set_num_threads(1)
+
 # float32 results of a handful of operations in another order: a few ulp
 F32_TOL = 2e-6
 
@@ -212,7 +220,9 @@ def test_port_imports_no_jax():
     import refactored_orb_slam2_tpu_torch as pkg
 
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
-    assert "refactored_orb_slam2_tpu_torch.system" in names
+    for module in ("system", "solvers.initializer", "utils.presets", "ops.stereo",
+                   "geometry.triangulation"):
+        assert f"refactored_orb_slam2_tpu_torch.{module}" in names
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}: importlib.import_module(n)\n"

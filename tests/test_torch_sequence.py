@@ -21,6 +21,7 @@
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from refactored_orb_slam2_tpu.geometry import se3 as jse3
 from refactored_orb_slam2_tpu.system import SlamSystem as JSlam
@@ -32,6 +33,12 @@ from refactored_orb_slam2_tpu_torch import system as tsystem
 from refactored_orb_slam2_tpu_torch.io.convert import config_from_reference
 from refactored_orb_slam2_tpu_torch.ops import cuda_hamming
 from refactored_orb_slam2_tpu_torch.system import SlamSystem as TSlam
+
+# One intra-op thread: at these sizes PyTorch's threads gain nothing, and
+# several test workers with a thread per core each spin against one another.
+# Every file that runs the port's whole system sets it, so the setting holds
+# whichever files a run selects.
+torch.set_num_threads(1)
 
 CFG = SystemConfig(
     sensor="rgbd",

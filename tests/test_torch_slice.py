@@ -23,6 +23,12 @@ from refactored_orb_slam2_tpu_torch.ops import cuda_hamming
 from refactored_orb_slam2_tpu_torch.system import SlamSystem as TSlam
 from refactored_orb_slam2_tpu_torch.utils import world3d as W
 
+# One intra-op thread: at these sizes PyTorch's threads gain nothing, and
+# several test workers with a thread per core each spin against one another.
+# Every file that runs the port's whole system sets it, so the setting holds
+# whichever files a run selects.
+torch.set_num_threads(1)
+
 CFG = SystemConfig(
     sensor="rgbd",
     camera=CameraConfig(fx=258.65, fy=258.25, cx=159.3, cy=127.65, bf=20.0,
@@ -135,18 +141,25 @@ def test_fused_step_goes_through_window_match(runs):
 
 
 def test_outside_the_slice_raises():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TSlam(TCFG.replace(sensor="stereo"), device="cpu")
+    """The stereo and monocular sensors are inside the port; an unknown
+    sensor, the async modes and relocalization are not."""
+    for sensor in ("stereo", "monocular"):
+        assert TSlam(TCFG.replace(sensor=sensor), device="cpu").sensor == sensor
+    with pytest.raises(ValueError, match="sensor"):
+        TSlam(TCFG.replace(sensor="imu"), device="cpu")
     with pytest.raises(NotImplementedError, match="item 12"):
         TSlam(TCFG, device="cpu", pipelined=True)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        TSlam(TCFG, device="cpu")._relocalize("tracking is lost")
 
 
 def test_motion_failure_raises_naming_item_7():
     """A frame without texture after initialization fails motion-model
     tracking.  Item 7 brought its fallback: TrackReferenceKeyFrame finds no
     match either, the frame is lost, and the next frame resets the system
-    (n_kf <= 5) instead of raising.  What item 7 left out, localization-only
-    mode (item 7b), raises naming it."""
+    (n_kf <= 5) instead of raising.  Localization-only mode (item 7b) came
+    after it: there the map is frozen, a lost system does not reset, and the
+    next frame raises naming relocalization (item 10)."""
     world = W.scene_room(seed=11)
     slam = TSlam(TCFG, device="cpu")
     T = W.traj_room_orbit(160, seed=5, span=0.45 * np.pi)[0]
@@ -157,5 +170,10 @@ def test_motion_failure_raises_naming_item_7():
     assert slam.state == 2 and slam.trajectory[-1].lost
     assert slam.track_rgbd(*world.render(T, slam.cam, want_depth=True), 2 / 30.0) is None
     assert slam.state == 0 and slam.n_kf == 0 and not slam.trajectory
-    with pytest.raises(NotImplementedError, match="item 7"):
-        slam.activate_localization_mode()
+    slam.activate_localization_mode()
+    assert slam.localization_only
+    slam.state = 2                          # lost again, now with the map frozen
+    with pytest.raises(NotImplementedError, match="item 10"):
+        slam.track_rgbd_device(blank, depth, 3 / 30.0)
+    slam.deactivate_localization_mode()
+    assert not slam.localization_only

@@ -29,6 +29,12 @@ from refactored_orb_slam2_tpu_torch.models import map_state as TMS
 from refactored_orb_slam2_tpu_torch.optim.pose_opt import optimize_pose
 from refactored_orb_slam2_tpu_torch.utils import world3d as W
 
+# One intra-op thread: at these sizes PyTorch's threads gain nothing, and
+# several test workers with a thread per core each spin against one another.
+# Every file that runs the port's whole system sets it, so the setting holds
+# whichever files a run selects.
+torch.set_num_threads(1)
+
 CFG = SystemConfig(
     sensor="rgbd",
     camera=CameraConfig(fx=258.65, fy=258.25, cx=159.3, cy=127.65, bf=20.0,

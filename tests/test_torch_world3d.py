@@ -83,3 +83,24 @@ def test_render_device_wire_encoding(renders):
     assert (np.abs(u8.astype(int) - ref8.astype(int)) <= 1).mean() >= 0.995
     ref16 = np.clip(jdepth * 1000.0, 0, 65535).astype(np.uint16)
     assert (np.abs(u16.astype(int) - ref16.astype(int)) <= 1).all()
+
+
+def test_render_stereo_matches_jax():
+    """The right image is the scene from bf / fx further along the camera's
+    x axis; both images take their noise from the one generator in turn."""
+    cam = camera_from_config(config_from_reference(CameraConfig(
+        fx=129.3, fy=129.1, cx=79.6, cy=63.8, bf=14.2, width=160, height=120)))
+    T = JW.traj_room_orbit(160, seed=5, span=0.45 * np.pi)[3]
+    jl, jr = JW.scene_room(seed=11).render_stereo(T, cam, noise=2.0,
+                                                   rng=np.random.default_rng(4))
+    world = TW.scene_room(seed=11)
+    tl, tr = world.render_stereo(T, cam, noise=2.0, rng=np.random.default_rng(4))
+    for got, ref in ((tl, jl), (tr, jr)):
+        assert got.shape == ref.shape == (120, 160) and got.dtype == np.float32
+        assert (np.abs(got - ref) <= 1.0).mean() >= 0.995
+    assert np.abs(tl - tr).mean() > 1.0                   # two different views
+    dl, dr = world.render_stereo_device(T, cam, noise=2.0, rng=np.random.default_rng(4),
+                                        device="cpu")
+    assert dl.dtype == dr.dtype == torch.uint8
+    np.testing.assert_array_equal(dl.numpy(), np.clip(tl, 0, 255).astype(np.uint8))
+    np.testing.assert_array_equal(dr.numpy(), np.clip(tr, 0, 255).astype(np.uint8))
