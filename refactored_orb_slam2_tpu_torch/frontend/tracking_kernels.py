@@ -4,6 +4,9 @@
   (ORBmatcher.cc:1247-1383);
 - ``match_reference_kf``  = the matching of TrackReferenceKeyFrame
   (Tracking.cc:681-719);
+- ``match_kf_points_by_projection`` = the relocalization rescue search,
+  ORBmatcher::SearchByProjection(Frame, KeyFrame, sAlreadyFound, th, ORBdist)
+  (ORBmatcher.cc:1385-1504), through ``cuda_hamming.hamming_best2``;
 - ``match_vo_points``     = the temporal points of localization-only mode
   (UpdateLastFrame, Tracking.cc:724-778) matched like the motion model;
 - ``select_local_points`` = Tracking::UpdateLocalPoints + Frame::isInFrustum
@@ -127,6 +130,62 @@ def match_reference_kf(
                         dist=torch.where(keep, res.dist, M.BIG), mask=keep)
     base = torch.full((frame.n_slots,), -1, dtype=torch.int32, device=kf_desc.device)
     return ProjMatchResult(pt_idx=_scatter_to_features(base, res, kf_pt_idx),
+                           n_matches=res.mask.sum(dtype=torch.int32))
+
+
+def match_kf_points_by_projection(
+    cam,
+    Tcw: torch.Tensor,
+    frame,                        # FrameData
+    kf_pt_idx: torch.Tensor,      # (N,) candidate keyframe's point slots (-1)
+    kf_feat_valid: torch.Tensor,  # (N,)
+    kf_angle: torch.Tensor,       # (N,) degrees (rotation histogram)
+    pt_pos: torch.Tensor,         # (P, 3)
+    pt_valid: torch.Tensor,       # (P,)
+    pt_desc: torch.Tensor,        # (P, 8)
+    pt_max_dist: torch.Tensor,    # (P,) scale band for the octave prediction
+    existing_pt: torch.Tensor,    # (N,) current frame's matches (kept, excluded)
+    *,
+    th: float,
+    max_dist: int,
+    scale_factors: np.ndarray,
+    scale_factor: float,
+    n_levels: int,
+) -> ProjMatchResult:
+    """Project the candidate keyframe's landmarks that the frame has not
+    matched yet with the current pose estimate, and match them into the
+    frame's free features: window th x scale^predicted level, octave band
+    [pred - 1, pred + 1], distance <= ``max_dist``, one row per column,
+    rotation histogram.  Rows are the keyframe's feature slots, columns the
+    frame's; returns ``existing_pt`` with the new associations merged in.
+
+    The masked best-2 runs in ``matching.nn_match_desc``, so on the card the
+    masked CUDA kernel does it."""
+    P = pt_pos.shape[0]
+    already = set_rows(torch.zeros(P, dtype=torch.bool, device=pt_pos.device),
+                       torch.where(existing_pt >= 0, existing_pt, P), True)
+    kp = torch.clamp(kf_pt_idx, min=0).long()
+    has_pt = kf_feat_valid & (kf_pt_idx >= 0) & pt_valid[kp] & ~already[kp]
+    pw = pt_pos[kp]
+    u, v, z_ok, in_img = project_in_image(cam, se3.transform(Tcw, pw))
+    uv = torch.stack([u, v], dim=-1)
+    row_valid = has_pt & z_ok & in_img
+
+    center = se3.translation(se3.inv(Tcw))
+    pred = predict_scale(torch.linalg.norm(pw - center, dim=-1), pt_max_dist[kp],
+                         scale_factor, n_levels)
+    radius = th * _radius_scale(scale_factors, pred)
+    geo = M.window_mask(uv, frame.xy, radius)
+    geo = geo & M.octave_band_mask(pred, frame.octave, -1, 1)
+
+    res = M.nn_match_desc(pt_desc[kp], frame.desc, row_valid=row_valid,
+                          col_valid=frame.valid & (existing_pt < 0), extra_mask=geo,
+                          max_dist=max_dist)
+    res = M.resolve_duplicates(res, frame.n_slots)
+    keep = M.rotation_consistency_mask(kf_angle, frame.angle, res)
+    res = M.MatchResult(idx=torch.where(keep, res.idx, -1),
+                        dist=torch.where(keep, res.dist, M.BIG), mask=keep)
+    return ProjMatchResult(pt_idx=_scatter_to_features(existing_pt, res, kf_pt_idx),
                            n_matches=res.mask.sum(dtype=torch.int32))
 
 

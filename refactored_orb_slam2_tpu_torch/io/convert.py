@@ -1,11 +1,14 @@
 """State carry-across between the JAX package and the port.
 
 ``map_state_from_numpy`` / ``frame_from_numpy`` / ``orb_features_from_numpy``
-/ ``ba_problem_from_numpy`` / ``init_result_from_numpy`` take the JAX
+/ ``ba_problem_from_numpy`` / ``init_result_from_numpy`` /
+``pnp_result_from_numpy`` / ``vocabulary_from_numpy`` take the JAX
 package's ``MapState`` / ``FrameData`` / ``OrbFeatures`` / ``BAProblem`` /
-``InitResult`` with numpy leaves (``jax.tree.map(np.asarray, x)``, or any object or mapping with
-the same field names) and build the port's; ``map_state_to_numpy`` goes
-back.  A ``MapState`` crosses with every bank, so a map that a JAX run
+``InitResult`` / ``PnPResult`` / ``Vocabulary`` with numpy leaves
+(``jax.tree.map(np.asarray, x)``, or any object or mapping with the same
+field names) and build the port's; ``keyframe_db_from_numpy`` builds a
+``KeyFrameDB`` from a JAX one's vocabulary, ``bow`` and ``valid``;
+``map_state_to_numpy`` goes back.  A ``MapState`` crosses with every bank, so a map that a JAX run
 built over several keyframes (covisibility, observations, parents) arrives
 whole.  Descriptor banks cross as numpy
 views: the JAX package's ``uint32`` words become the port's ``int32`` words
@@ -26,9 +29,12 @@ from ..frontend.frame import FrameData
 from ..models.map_state import MapState
 from ..ops.orb import OrbFeatures
 from ..optim.bundle_adjustment import BAProblem
+from ..place.keyframe_db import KeyFrameDB
+from ..place.vocab import Vocabulary, make_vocabulary
+from ..solvers.epnp import PnPResult
 from ..solvers.initializer import InitResult
 
-_DESC_FIELDS = ("kf_desc", "pt_desc", "desc")
+_DESC_FIELDS = ("kf_desc", "pt_desc", "desc", "words")
 
 
 def config_from_reference(cfg):
@@ -90,6 +96,28 @@ def init_result_from_numpy(obj, device="cpu") -> InitResult:
 def ba_problem_from_numpy(obj, device="cpu") -> BAProblem:
     """The port's ``BAProblem`` from numpy arrays with the JAX field names."""
     return _from(BAProblem, obj, device)
+
+
+def pnp_result_from_numpy(obj, device="cpu") -> PnPResult:
+    """The port's ``PnPResult`` from numpy arrays with the JAX field names."""
+    return _from(PnPResult, obj, device)
+
+
+def vocabulary_from_numpy(obj, device="cpu") -> Vocabulary:
+    """The port's ``Vocabulary`` from a JAX one's ``words`` (uint32) and
+    ``idf``; the ±1 planes are made anew (the JAX ones are bf16)."""
+    return make_vocabulary(_to_tensor("words", _get(obj, "words"), device),
+                           _to_tensor("idf", _get(obj, "idf"), device))
+
+
+def keyframe_db_from_numpy(obj, device="cpu") -> KeyFrameDB:
+    """A ``KeyFrameDB`` from a JAX one (or anything with its ``vocab``,
+    ``bow`` and ``valid``): the same vocabulary, bank and valid mask."""
+    bow = _to_tensor("bow", _get(obj, "bow"), device)
+    db = KeyFrameDB(vocabulary_from_numpy(_get(obj, "vocab"), device), bow.shape[0])
+    db.bow.copy_(bow)
+    db.valid.copy_(_to_tensor("valid", _get(obj, "valid"), device))
+    return db
 
 
 def map_state_to_numpy(state: MapState) -> dict:

@@ -63,3 +63,17 @@ def hamming_rowwise(a_packed: torch.Tensor, b_packed: torch.Tensor) -> torch.Ten
     x = torch.bitwise_xor(a_packed, b_packed).contiguous()
     bytes_ = x.view(torch.uint8).to(torch.int64)      # (..., 32)
     return _popcount8(x.device)[bytes_].sum(dim=-1).to(torch.int32)
+
+
+def majority_descriptor(counts: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """(..., 256) per-bit counts of set bits over ``n`` descriptors -> the
+    packed bitwise majority, ties set (FORB::meanValue, DBoW2/FORB.cpp:24-56)."""
+    return pack_bits((2 * counts >= n).to(torch.uint8))
+
+
+def mean_descriptor(packed: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Bitwise-majority mean of the valid rows: (N, 8), (N,) bool -> (8,)."""
+    bits = unpack_bits(packed).to(torch.int32)
+    n = torch.clamp(valid.sum(dtype=torch.int32), min=1)
+    counts = torch.sum(bits * valid[:, None].to(torch.int32), dim=0)
+    return majority_descriptor(counts, n)

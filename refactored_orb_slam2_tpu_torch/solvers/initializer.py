@@ -52,17 +52,23 @@ def _pick(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     return t.index_select(0, i.reshape(1))[0]
 
 
-def draw_minimal_sets(valid: torch.Tensor, n_hyps: int,
-                      generator: torch.Generator) -> torch.Tensor:
-    """(n_hyps, 8) int64 indices: per hypothesis 8 distinct valid
-    correspondences, uniformly without replacement (the 8 largest of one
+def draw_sets(valid: torch.Tensor, n_hyps: int, size: int,
+              generator: torch.Generator) -> torch.Tensor:
+    """(n_hyps, size) int64 indices: per hypothesis ``size`` distinct valid
+    correspondences, uniformly without replacement (the largest of one
     uniform key per correspondence).  The keys are drawn on the generator's
     device, so a seeded CPU generator gives the same sets for a CPU and a
     CUDA ``valid``."""
     keys = torch.rand((n_hyps, valid.shape[0]), generator=generator,
                       device=generator.device).to(valid.device)
     keys = torch.where(valid[None, :], keys, -1.0)
-    return torch.topk(keys, 8, dim=1).indices
+    return torch.topk(keys, size, dim=1).indices
+
+
+def draw_minimal_sets(valid: torch.Tensor, n_hyps: int,
+                      generator: torch.Generator) -> torch.Tensor:
+    """(n_hyps, 8) sets of the 8-point solvers (``draw_sets``)."""
+    return draw_sets(valid, n_hyps, 8, generator)
 
 
 def _normalize(pts: torch.Tensor, valid: torch.Tensor):

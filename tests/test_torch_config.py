@@ -188,3 +188,26 @@ def test_telemetry_copy_counts_and_warns_like_the_reference(caplog):
     for tel in (t_telemetry, j_telemetry):
         tel.reset()
     assert t_telemetry.get("frames") == 0
+
+
+def test_vocabulary_asset_copy_equal():
+    """The port loads its own copy of the packaged vocabulary: the same
+    4096 words (uint32 in the file, int32 words once loaded) and idf."""
+    import os
+
+    import refactored_orb_slam2_tpu
+    from refactored_orb_slam2_tpu_torch.place.vocab import load_vocabulary
+    from refactored_orb_slam2_tpu_torch.system import VOCAB_ASSET
+
+    original = os.path.join(os.path.dirname(refactored_orb_slam2_tpu.__file__),
+                            "assets", "vocab.npz")
+    assert os.path.abspath(VOCAB_ASSET) != os.path.abspath(original)
+    j, t = np.load(original), np.load(VOCAB_ASSET)
+    assert sorted(t.files) == sorted(j.files) == ["idf", "words"]
+    for key in ("words", "idf"):
+        assert t[key].dtype == j[key].dtype and t[key].shape == j[key].shape
+        np.testing.assert_array_equal(t[key], j[key])
+    assert j["words"].shape == (4096, 8) and j["words"].dtype == np.uint32
+    vocab = load_vocabulary(VOCAB_ASSET)
+    np.testing.assert_array_equal(vocab.words.numpy().view(np.uint32), j["words"])
+    np.testing.assert_array_equal(vocab.idf.numpy(), j["idf"])

@@ -213,3 +213,54 @@ def test_slice_on_card_agrees_with_cpu(cuda):
     assert k_cpu == k_gpu == 1
     np.testing.assert_allclose(s_gpu, s_cpu, rtol=0.02, atol=2)
     np.testing.assert_allclose(p_gpu, p_cpu, atol=1e-3)
+
+
+def test_relocalization_on_card_agrees_with_cpu(cuda):
+    """The 320x240 room frames 0-5 on the card and on the CPU, then
+    localization-only mode, two grey frames (lost, and a relocalization
+    attempt with no feature) and frame 0's view again: both relocalize
+    at keyframe 0 with the same EPnP sets (drawn from a seeded CPU
+    generator on either device), poses within 1 mm; on the card the
+    relocalized frame's local map launches the window kernel and a rescue
+    round the masked kernel, whose associations equal the CPU's."""
+    cfg = SystemConfig(
+        sensor="rgbd",
+        camera=CameraConfig(fx=258.65, fy=258.25, cx=159.3, cy=127.65, bf=20.0,
+                            width=320, height=240),
+        orb=ORBConfig(n_features=500, n_levels=4),
+        map=MapConfig(max_keyframes=24, max_points=4096, max_obs_per_point=8),
+    )
+    world = W.scene_room(seed=11)
+    poses = W.traj_room_orbit(160, seed=5, span=0.45 * np.pi)[:6]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        slam = SlamSystem(cfg, device=dev)
+        slam.loop_closing_enabled = False
+        rng = np.random.default_rng(0)
+        frames = [world.render_device(T, slam.cam, want_depth=True, noise=2.0, rng=rng,
+                                      device=dev) for T in poses]
+        for i, f in enumerate(frames):
+            assert slam.track_rgbd_device(*f, i / 30.0) is not None
+        slam.activate_localization_mode()
+        grey = (torch.full((240, 320), 128, dtype=torch.uint8, device=dev),
+                torch.full((240, 320), 2000, dtype=torch.int32, device=dev).to(torch.uint16))
+        assert slam.track_rgbd_device(*grey, 0.2) is None
+        assert slam.track_rgbd_device(*grey, 0.3) is None and slam.state == 2
+        before = dict(cuda_hamming.launches)
+        pose = slam.track_rgbd_device(*frames[0], 0.4)
+        assert pose is not None and slam.stats["relocs"] == 1
+        window = cuda_hamming.launches["window_match"] - before["window_match"]
+        rec = [r for r in slam.reloc_log if r["accepted"]][0]
+        half = torch.where(torch.arange(rec["pt_idx"].shape[0], device=dev) % 2 == 0,
+                           rec["pt_idx"], -1)
+        before = cuda_hamming.launches["hamming_best2"]
+        pt_idx, n_add = slam._reloc_rescue(rec["frame"], rec["pose"], rec["cand"], half, 10.0, 100)
+        out[dev] = (pose, rec["cand"], window, pt_idx.cpu().numpy(), n_add,
+                    cuda_hamming.launches["hamming_best2"] - before)
+    (p_cpu, c_cpu, w_cpu, i_cpu, n_cpu, m_cpu) = out["cpu"]
+    (p_gpu, c_gpu, w_gpu, i_gpu, n_gpu, m_gpu) = out["cuda"]
+    assert c_cpu == c_gpu == 0
+    np.testing.assert_allclose(p_gpu, p_cpu, atol=1e-3)
+    assert (w_cpu, m_cpu) == (0, 0) and w_gpu >= 1 and m_gpu == 1
+    assert n_gpu > 0 and abs(n_gpu - n_cpu) <= 0.02 * n_cpu + 2
+    assert (i_gpu == i_cpu).mean() > 0.98

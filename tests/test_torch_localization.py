@@ -11,6 +11,8 @@ path with the temporal points of ``match_vo_points``; after
 ``deactivate_localization_mode`` the fused path and keyframes come back.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 
@@ -22,6 +24,7 @@ from refactored_orb_slam2_tpu.utils.synthetic import SyntheticWorld
 from refactored_orb_slam2_tpu_torch import system as tsystem
 from refactored_orb_slam2_tpu_torch.io.convert import config_from_reference
 from refactored_orb_slam2_tpu_torch.system import SlamSystem as TSlam, TrackState
+from test_torch_epnp import jax_sets_injected
 from test_torch_sequence import assert_poses_close, lateral_traj
 
 CFG = SystemConfig(
@@ -129,15 +132,31 @@ def test_deactivate_brings_keyframes_back_and_reset_clears(frames):
 
 
 def test_lost_in_localization_mode_names_relocalization(frames):
-    """With the map frozen a lost frame does not reset the system (the JAX
-    package relocalizes there); the port names the item that brings it."""
-    slam = TSlam(TCFG, device="cpu")
-    slam.loop_closing_enabled = False
-    for i, (img, depth) in enumerate(frames[:3]):
-        slam.track_rgbd(img, depth, i * 0.1)
-    slam.activate_localization_mode()
-    blank = np.full_like(frames[0][0], 128.0), np.full_like(frames[0][1], 2.0)
-    assert slam.track_rgbd(*blank, 0.3) is None
-    assert slam.state == TrackState.LOST and slam.n_kf == 1
-    with pytest.raises(NotImplementedError, match="item 10"):
-        slam.track_rgbd(*frames[4], 0.4)
+    """With the map frozen a lost frame does not reset the system: the next
+    frame goes to ``_relocalize`` (here with one keyframe in the database)
+    on both packages, which agree with the JAX package's EPnP sets injected:
+    relocalized or not, the state, ``stats``, the map unchanged, and a
+    relocalized pose within 1 mm and 0.1 degree."""
+    out = {}
+    for name in ("jax", "port"):
+        slam = JSlam(CFG) if name == "jax" else TSlam(TCFG, device="cpu")
+        slam.loop_closing_enabled = False
+        for i, (img, depth) in enumerate(frames[:3]):
+            slam.track_rgbd(img, depth, i * 0.1)
+        slam.activate_localization_mode()
+        blank = np.full_like(frames[0][0], 128.0), np.full_like(frames[0][1], 2.0)
+        assert slam.track_rgbd(*blank, 0.3) is None
+        assert slam.state == TrackState.LOST and slam.n_kf == 1
+        calls, reloc = [], slam._relocalize
+        slam._relocalize = lambda frame: calls.append(frame) or reloc(frame)
+        with (jax_sets_injected() if name == "port" else contextlib.nullcontext()):
+            pose = slam.track_rgbd(*frames[4], 0.4)
+        out[name] = (pose, slam.state, {k: slam.stats[k] for k in ("relocs", "reloc_rejects")},
+                     len(calls), (slam.n_kf, slam.n_pt))
+    (pj, sj, statj, cj, mapj), (pt, st, statt, ct, mapt) = out["jax"], out["port"]
+    assert cj == ct == 1
+    assert (pt is None) == (pj is None) and st == sj
+    assert statt == statj and mapt == mapj and mapt[0] == 1
+    if pt is not None:
+        assert statt["relocs"] == 1
+        assert_poses_close(pt[None], pj[None])

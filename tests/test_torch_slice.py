@@ -141,16 +141,23 @@ def test_fused_step_goes_through_window_match(runs):
 
 
 def test_outside_the_slice_raises():
-    """The stereo and monocular sensors are inside the port; an unknown
-    sensor, the async modes and relocalization are not."""
+    """The stereo and monocular sensors and relocalization are inside the
+    port; an unknown sensor and the async modes are not.  A system that has
+    inserted no keyframe has no KeyFrameDB, so ``_relocalize`` finds no
+    candidate, as the JAX package's does, and reads nothing."""
     for sensor in ("stereo", "monocular"):
         assert TSlam(TCFG.replace(sensor=sensor), device="cpu").sensor == sensor
     with pytest.raises(ValueError, match="sensor"):
         TSlam(TCFG.replace(sensor="imu"), device="cpu")
     with pytest.raises(NotImplementedError, match="item 12"):
         TSlam(TCFG, device="cpu", pipelined=True)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TSlam(TCFG, device="cpu")._relocalize("tracking is lost")
+    slam, ref = TSlam(TCFG, device="cpu"), JSlam(CFG)
+    frame = slam._build_frame(torch.zeros((240, 320), dtype=torch.uint8),
+                              torch.zeros((240, 320), dtype=torch.int32).to(torch.uint16))
+    assert slam.db is None and ref.db is None
+    assert slam._relocalize(frame) == (False, None, None)
+    assert ref._relocalize(None) == (False, None, None)
+    assert slam.reloc_log == [] and slam.stats["relocs"] == slam.stats["reloc_rejects"] == 0
 
 
 def test_motion_failure_raises_naming_item_7():
@@ -158,22 +165,38 @@ def test_motion_failure_raises_naming_item_7():
     tracking.  Item 7 brought its fallback: TrackReferenceKeyFrame finds no
     match either, the frame is lost, and the next frame resets the system
     (n_kf <= 5) instead of raising.  Localization-only mode (item 7b) came
-    after it: there the map is frozen, a lost system does not reset, and the
-    next frame raises naming relocalization (item 10)."""
+    after it: there the map is frozen and a lost system does not reset.
+    Relocalization (item 10) came last: on the map made again from the same
+    view, every lost localization-only frame goes to ``_relocalize``; the
+    blank one finds no feature to match and stays lost, the view of
+    keyframe 0 relocalizes at keyframe 0's pose."""
     world = W.scene_room(seed=11)
     slam = TSlam(TCFG, device="cpu")
     T = W.traj_room_orbit(160, seed=5, span=0.45 * np.pi)[0]
-    assert slam.track_rgbd(*world.render(T, slam.cam, want_depth=True), 0.0) is not None
+    view = world.render(T, slam.cam, want_depth=True)
+    assert slam.track_rgbd(*view, 0.0) is not None
+    assert slam.db is not None and bool(slam.db.valid[0])   # keyframe 0's signature
     blank = torch.full((240, 320), 128, dtype=torch.uint8)
     depth = torch.full((240, 320), 2000).to(torch.uint16)
     assert slam.track_rgbd_device(blank, depth, 1 / 30.0) is None
     assert slam.state == 2 and slam.trajectory[-1].lost
-    assert slam.track_rgbd(*world.render(T, slam.cam, want_depth=True), 2 / 30.0) is None
+    assert slam.track_rgbd(*view, 2 / 30.0) is None
     assert slam.state == 0 and slam.n_kf == 0 and not slam.trajectory
+    assert slam.db is None and slam.vocab is None and slam.last_reloc_frame_id == -1
+    assert slam.track_rgbd(*view, 3 / 30.0) is not None       # initialized again
     slam.activate_localization_mode()
     assert slam.localization_only
-    slam.state = 2                          # lost again, now with the map frozen
-    with pytest.raises(NotImplementedError, match="item 10"):
-        slam.track_rgbd_device(blank, depth, 3 / 30.0)
+    calls = []
+    reloc = slam._relocalize
+    slam._relocalize = lambda frame: calls.append(int(frame.valid.sum())) or reloc(frame)
+    assert slam.track_rgbd_device(blank, depth, 4 / 30.0) is None   # lost, the map frozen
+    assert slam.state == 2 and slam.n_kf == 1 and not calls
+    assert slam.track_rgbd_device(blank, depth, 5 / 30.0) is None   # no feature to match
+    assert calls == [0] and slam.state == 2 and slam.stats["relocs"] == 0
+    pose = slam.track_rgbd(*view, 6 / 30.0)
+    assert len(calls) == 2 and slam.state == 1 and slam.stats["relocs"] == 1
+    assert slam.last_reloc_frame_id == slam.frame_id and slam.velocity is None
+    np.testing.assert_allclose(pose, np.eye(4), atol=1e-3)
+    assert slam.n_kf == 1
     slam.deactivate_localization_mode()
     assert not slam.localization_only
