@@ -42,6 +42,26 @@ def so3_exp(phi: torch.Tensor) -> torch.Tensor:
     return _eye3_like(Phi) + a * Phi + b * (Phi @ Phi)
 
 
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> axis-angle, (..., 3, 3) -> (..., 3), through the
+    quaternion (``to_quaternion``), stable at every angle including near pi.
+    At the identity the small-angle branch is selected, so forward-mode
+    derivatives (``torch.func.jacfwd``) stay finite there."""
+    q = to_quaternion(R)
+    v, w = q[..., :3], q[..., 3]
+    # w >= 0 so that theta lies in [0, pi]
+    sign = torch.where(w < 0, -1.0, 1.0)
+    v = v * sign[..., None]
+    w = w * sign
+    vn = torch.linalg.norm(v, dim=-1)
+    theta = 2.0 * torch.atan2(vn, w)
+    small = vn < 1e-6
+    # phi = theta v / |v|, and theta / |v| -> 2 / w as theta -> 0
+    scale = torch.where(small, 2.0 / torch.clamp(w, min=0.5),
+                        theta / torch.where(small, 1.0, vn))
+    return v * scale[..., None]
+
+
 def _left_jacobian(phi: torch.Tensor) -> torch.Tensor:
     """SO(3) left Jacobian J_l(phi), (..., 3) -> (..., 3, 3)."""
     theta2 = torch.sum(phi * phi, dim=-1, keepdim=True)[..., None]

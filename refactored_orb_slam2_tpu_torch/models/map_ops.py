@@ -1,6 +1,7 @@
 """Functional map mutations (port of models/map_ops.py): keyframe
-insertion, close-point creation from depth, and the local-BA window's
-gather into a compact problem and scatter back.
+insertion, close-point creation from depth, the local-BA window's gather
+into a compact problem and scatter back, and the whole-map BA problem of
+global BA with its writeback.
 
 JAX writes with ``.at[idx].set(..., mode="drop")`` and parks rejected rows
 at index P; here those rows land in one extra dump row that is sliced off
@@ -314,5 +315,57 @@ def scatter_ba_window(state: MapState, prob, kf_sel, pt_sel, obs_sel,
         pt_pos=pt_pos,
         pt_obs_kf=set_rows(state.pt_obs_kf, pt_tgt, torch.where(dropped, -1, row_kf)),
         pt_obs_feat=set_rows(state.pt_obs_feat, pt_tgt, torch.where(dropped, -1, row_ft)),
+        kf_point_idx=torch.where(clear, -1, state.kf_point_idx),
+    )
+
+
+def build_ba_problem(state: MapState, window_mask_kf: torch.Tensor,
+                     fixed_mask_kf: torch.Tensor, inv_sigma2_table: torch.Tensor):
+    """A ``BAProblem`` over the whole bank for the given keyframe window:
+    every valid point observed by a window keyframe (Optimizer.cc:471-485),
+    with its observations by keyframes outside the window and the fixed set
+    dropped (those keyframes are no vertices)."""
+    from ..optim.bundle_adjustment import BAProblem
+
+    in_problem = window_mask_kf | fixed_mask_kf
+    kfc = torch.clamp(state.pt_obs_kf, min=0).long()
+    ftc = torch.clamp(state.pt_obs_feat, min=0).long()
+    obs_ok = (state.pt_obs_kf >= 0) & state.kf_valid[kfc] & in_problem[kfc]
+    pt_in = state.pt_valid & torch.any(obs_ok & window_mask_kf[kfc], dim=1)
+    obs_ok = obs_ok & pt_in[:, None]
+    uvr = state.kf_uvr[kfc, ftc]                                # (P, O, 3)
+    octv = state.kf_octave[kfc, ftc]
+    inv_s2 = inv_sigma2_table[torch.clamp(octv, 0, inv_sigma2_table.shape[0] - 1).long()]
+    return BAProblem(
+        kf_poses=state.kf_pose,
+        kf_fixed=fixed_mask_kf | ~window_mask_kf,
+        kf_valid=state.kf_valid & in_problem,
+        points=state.pt_pos,
+        point_valid=pt_in,
+        obs_kf=torch.where(obs_ok, state.pt_obs_kf, -1),
+        obs_uvr=uvr,
+        obs_inv_sigma2=inv_s2,
+        obs_is_stereo=uvr[..., 2] >= 0,
+        obs_valid=obs_ok,
+    )
+
+
+def writeback_ba(state: MapState, ba_poses: torch.Tensor, ba_points: torch.Tensor,
+                 ba_obs_valid: torch.Tensor, prob) -> MapState:
+    """Apply a whole-map BA result: poses of the optimized keyframes,
+    positions of the points in the problem, and the observations the BA
+    classified as outliers erased on both sides (Optimizer.cc:696-744)."""
+    K, N, P, O = state.capacity
+    opt_kf = prob.kf_valid & ~prob.kf_fixed
+    dropped = prob.obs_valid & ~ba_obs_valid
+    flat = torch.where(dropped, torch.clamp(state.pt_obs_kf, min=0).long() * N
+                       + torch.clamp(state.pt_obs_feat, min=0).long(), K * N)
+    clear = set_rows(torch.zeros(K * N, dtype=torch.bool, device=flat.device),
+                     flat.reshape(-1), True).reshape(K, N)
+    return state.replace(
+        kf_pose=torch.where(opt_kf[:, None, None], ba_poses, state.kf_pose),
+        pt_pos=torch.where(prob.point_valid[:, None], ba_points, state.pt_pos),
+        pt_obs_kf=torch.where(dropped, -1, state.pt_obs_kf),
+        pt_obs_feat=torch.where(dropped, -1, state.pt_obs_feat),
         kf_point_idx=torch.where(clear, -1, state.kf_point_idx),
     )

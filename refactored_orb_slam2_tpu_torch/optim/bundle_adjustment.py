@@ -1,20 +1,25 @@
-"""Schur-complement bundle adjustment, the dense path of local BA (port of
+"""Schur-complement bundle adjustment: local, global and init BA (port of
 optim/bundle_adjustment.py; g2o's BlockSolver_6_3 + LM as driven by
-Optimizer::LocalBundleAdjustment, Optimizer.cc:437-744).
+Optimizer::BundleAdjustment and LocalBundleAdjustment, Optimizer.cc:52-231
+and 437-744).
 
 Observations come per point in padded slots (P, O), each naming its
-keyframe.  Point blocks are marginalised: the reduced camera system
-``S = U - W V^-1 W^T`` is built densely (K <= ~100 for a compacted local
-window) and solved with ``torch.linalg.solve_ex``, which leaves its status
-on the device.  Huber robustification and per-octave information follow
-the reference; fixed cameras are masked out of the system.
+keyframe.  Point blocks are marginalised, and the reduced camera system
+``S = U - W V^-1 W^T`` is solved one of two ways:
 
-Sums over observations into camera blocks are one-hot matrix products
-(``_seg_sum_oh``), as in the JAX package: they are deterministic on the
-card, where an ``index_add_`` of floats adds in the order its atomics land.
-The matrix-free PCG solver, ``run``, ``build_ba_problem`` and
-``writeback_ba`` serve global BA and arrive with loop closing (ROADMAP.md
-queue 1 item 11).
+- ``solver="dense"``: S built densely (K <= ~100 for a compacted local
+  window) and solved with ``torch.linalg.solve_ex``, which leaves its
+  status on the device;
+- ``solver="pcg"``: matrix-free preconditioned conjugate gradients, ``S x``
+  as gathers, small products and one segment sum per matvec, with 6x6
+  block-Jacobi preconditioning: global BA over the whole map, whose dense
+  fill-in would be gigabytes.
+
+Huber robustification and per-octave information follow the reference;
+fixed cameras are masked out of the system.  Sums over observations into
+camera blocks are one-hot matrix products (``_seg_sum_oh``), as in the JAX
+package: they are deterministic on the card, where an ``index_add_`` of
+floats adds in the order its atomics land.
 """
 
 from __future__ import annotations
@@ -25,6 +30,13 @@ import torch
 
 from ..geometry import se3
 from . import residuals as res
+
+
+class BAResult(NamedTuple):
+    kf_poses: torch.Tensor
+    points: torch.Tensor
+    obs_valid: torch.Tensor     # observation mask after the final outlier gate
+    total_chi2: torch.Tensor
 
 
 class BAProblem(NamedTuple):
@@ -105,7 +117,10 @@ def _seg_sum_oh(vals: torch.Tensor, idx: torch.Tensor, K: int) -> torch.Tensor:
     step = N // n_chunks
     out = torch.zeros((K, v.shape[1]), dtype=v.dtype, device=v.device)
     for s in range(0, N, step):
-        oh = torch.nn.functional.one_hot(idx[s:s + step], K).to(v.dtype)
+        # written as floats: ``one_hot`` builds int64 first, three times the
+        # bytes of a chunk that the global BA's matvec rebuilds 64 times
+        oh = torch.zeros((step, K), dtype=v.dtype, device=v.device)
+        oh.scatter_(1, idx[s:s + step, None].long(), 1.0)
         out = out + oh.T @ v[s:s + step]
     return out.reshape((K,) + vals.shape[1:])
 
@@ -165,12 +180,54 @@ def _solve_dense(a: dict, K: int) -> torch.Tensor:
     return -dx.reshape(K, 6) * free[:, None]
 
 
-def _lm_step(cam, prob: BAProblem, poses, points, lam, use_huber: bool):
+def _solve_pcg(a: dict, K: int, n_cg: int) -> torch.Tensor:
+    """Matrix-free PCG on the Schur system with the block-Jacobi
+    preconditioner: ``S x = U_damped x - W V^-1 W^T x`` per matvec, S never
+    built.  A fixed number of iterations, so nothing is read back."""
+    free, Wb, V_inv, kf_idx = a["free"], a["Wb"], a["V_inv"], a["kf_idx"]
+    kf_flat = kf_idx.reshape(-1)
+    P, O = kf_idx.shape
+
+    def matvec(x):                                            # (K, 6)
+        xf = x * free[:, None]
+        ux = (a["U_damped"] @ xf[..., None])[..., 0]
+        wtx = torch.einsum("poij,poi->pj", Wb, xf[kf_idx])    # (P, 3)
+        vy = (V_inv @ wtx[..., None])[..., 0]
+        wy = _seg_sum_oh(torch.einsum("poij,pj->poi", Wb, vy).reshape(P * O, 6), kf_flat, K)
+        # free rows get S x; fixed and invalid rows act as the identity
+        return (ux - wy) * free[:, None] + (x - xf)
+
+    eye6 = torch.eye(6, dtype=Wb.dtype, device=Wb.device)
+    M = a["U_damped"] * free[:, None, None] + (1.0 - free)[:, None, None] * eye6
+    M_inv = torch.linalg.inv_ex(M + 1e-8 * eye6)[0]
+    precond = lambda v: (M_inv @ v[..., None])[..., 0]
+
+    b = -a["b_red"]
+    x = torch.zeros_like(b)
+    r = b - matvec(x)
+    z = precond(r)
+    p = z
+    rz = torch.sum(r * z)
+    for _ in range(n_cg):
+        Ap = matvec(p)
+        pAp = torch.sum(p * Ap)
+        alpha = rz / torch.where(torch.abs(pAp) < 1e-20, 1e-20, pAp)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = precond(r)
+        rz_new = torch.sum(r * z)
+        p = z + rz_new / torch.where(torch.abs(rz) < 1e-20, 1e-20, rz) * p
+        rz = rz_new
+    return x * free[:, None]
+
+
+def _lm_step(cam, prob: BAProblem, poses, points, lam, use_huber: bool,
+             solver: str = "dense", n_cg: int = 0):
     """One LM solve: (new poses, new points, error before the step)."""
     K = poses.shape[0]
     a = _assemble(cam, prob, poses, points, lam, use_huber)
     # a singular solve must give a rejectable zero step, not NaNs
-    dx_c = _solve_dense(a, K)
+    dx_c = _solve_dense(a, K) if solver == "dense" else _solve_pcg(a, K, n_cg)
     dx_c = torch.where(torch.isfinite(dx_c), dx_c, 0.0)
     # back-substitute points: dx_p = V^-1 (-b_p - sum over obs of W^T dx_c)
     wt_dxc = torch.einsum("poij,poi->pj", a["Wb"], dx_c[a["kf_idx"]])
@@ -181,13 +238,13 @@ def _lm_step(cam, prob: BAProblem, poses, points, lam, use_huber: bool):
 
 
 def lm_chunk(cam, prob: BAProblem, poses, points, lam, *, n_iters: int,
-             use_huber: bool):
-    """``n_iters`` LM iterations of the dense solver, carrying the damping
-    ``lam`` (a 0-dim tensor); a step is kept when it lowers the robustified
-    error, which is decided on the device."""
+             use_huber: bool, solver: str = "dense", n_cg: int = 0):
+    """``n_iters`` LM iterations carrying the damping ``lam`` (a 0-dim
+    tensor); a step is kept when it lowers the robustified error, which is
+    decided on the device."""
     for _ in range(n_iters):
         new_poses, new_points, err_old = _lm_step(cam, prob, poses, points, lam,
-                                                  use_huber)
+                                                  use_huber, solver, n_cg)
         err_new = _edge_terms(cam, prob, new_poses, new_points, use_huber)[-1]
         accept = err_new < err_old
         poses = torch.where(accept, new_poses, poses)
@@ -201,3 +258,28 @@ def classify_outliers(cam, prob: BAProblem, poses, points) -> torch.Tensor:
     _, _, _, _, chi2, pos_depth, _ = _edge_terms(cam, prob, poses, points, False)
     th = torch.where(prob.obs_is_stereo, res.CHI2_STEREO, res.CHI2_MONO)
     return prob.obs_valid & (chi2 <= th) & pos_depth
+
+
+def _run_lm(cam, prob: BAProblem, poses, points, n_iters: int, use_huber: bool,
+            solver: str, n_cg: int):
+    lam = torch.full((), 1e-4, dtype=poses.dtype, device=poses.device)
+    poses, points, _ = lm_chunk(cam, prob, poses, points, lam, n_iters=n_iters,
+                                use_huber=use_huber, solver=solver, n_cg=n_cg)
+    return poses, points
+
+
+def run(cam, prob: BAProblem, *, iters_phase1: int = 5, iters_phase2: int = 10,
+        solver: str = "dense", n_cg: int = 80) -> BAResult:
+    """Two-phase BA with the reference's outlier drop between the phases:
+    20/0 iterations for the monocular-init BA (Tracking.cc:618), 10/0 for
+    the loop-closing GBA (LoopClosing.cc:622), 5/10 for local BA
+    (Optimizer.cc:650-693).  ``solver`` is "dense" (compact windows) or
+    "pcg" (the whole map), with ``n_cg`` CG iterations per LM step."""
+    poses, points = _run_lm(cam, prob, prob.kf_poses, prob.points, iters_phase1, True,
+                            solver, n_cg)
+    if iters_phase2 > 0:
+        prob = prob._replace(obs_valid=classify_outliers(cam, prob, poses, points))
+        poses, points = _run_lm(cam, prob, poses, points, iters_phase2, True, solver, n_cg)
+    final_valid = classify_outliers(cam, prob, poses, points)
+    err = _edge_terms(cam, prob, poses, points, False)[-1]
+    return BAResult(kf_poses=poses, points=points, obs_valid=final_valid, total_chi2=err)

@@ -41,15 +41,20 @@ What runs here, in the JAX package's order:
   frame that followed visual odometry alone tries ``_relocalize`` first;
 - every keyframe's BoW signature goes into the KeyFrameDB
   (``_register_keyframe_bow``), and a culled keyframe leaves it;
+- loop closing after every mapped keyframe (``_try_close_loop``, from
+  ``loop.kf_gap + 2`` keyframes on): detection with the consistency chain,
+  ``compute_sim3`` per consistent candidate, the projection count, then
+  ``_correct_loop`` (propagation through the covisible group, SearchAndFuse
+  with the masked best-2 CUDA kernel, the essential graph, the point
+  correction) and the global BA (``_launch_gba``, run inline);
 - the trajectory products, chained through culled keyframes.
 
-Paths outside the port so far raise ``NotImplementedError`` naming the
-ROADMAP.md queue-1 item that brings them: loop closing (11; set
-``loop_closing_enabled = False``) and the async modes (12).  A tracked
-frame of the fused path reads one (6,) scalar vector and one (2, 4, 4) pose
-stack back to the host, as the JAX facade does; a keyframe, a
-localization-only frame and a relocalization add the reads listed in
-PERF.md.
+The async, pipelined and cooperative modes (ROADMAP.md queue 1 item 12)
+raise ``NotImplementedError``; the facade's pipeline and shutdown calls
+have nothing to wait for in synchronous mode.  A tracked frame of the fused
+path reads one (6,) scalar vector and one (2, 4, 4) pose stack back to the
+host, as the JAX facade does; a keyframe, a localization-only frame, a
+relocalization and a loop closure add the reads listed in PERF.md.
 """
 
 from __future__ import annotations
@@ -62,12 +67,13 @@ import numpy as np
 import torch
 
 from .backend import local_mapping as LM
+from .backend import loop_closing as LC
 from .frontend import tracking_kernels as TK
 from .frontend.frame import (
     FrameData, build_frame_mono, build_frame_rgbd, build_frame_stereo,
 )
 from .geometry import camera as cam_mod
-from .geometry import se3
+from .geometry import se3, sim3
 from .geometry.camera import camera_from_config
 from .models import map_ops
 from .models.map_state import (
@@ -79,6 +85,7 @@ from .ops.descriptors import hamming
 from .ops.image import level_sigma2
 from .ops.orb import level_quotas
 from .optim import bundle_adjustment as BA
+from .optim import pose_graph as PG
 from .optim.pose_opt import optimize_pose
 from .place.keyframe_db import KeyFrameDB, detect_reloc_candidates
 from .place.vocab import load_vocabulary, train_vocabulary
@@ -148,7 +155,8 @@ class SlamSystem:
     ``frame_poses`` / ``export_trajectory_tum``."""
 
     def __init__(self, config, device="cuda", async_mapping: bool = False,
-                 pipelined: bool = False, cooperative_mapping: bool = False):
+                 pipelined: bool = False, pipeline_depth: int = 1,
+                 cooperative_mapping: bool = False):
         # SLAM geometry needs full float32 products: at reduced precision the
         # pose normal equations and descriptor intensity differences lose
         # enough that tracking margins collapse (the JAX facade pins
@@ -157,10 +165,11 @@ class SlamSystem:
         # cuDNN and matmuls may use TF32, which keeps ~3 decimal digits.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        if async_mapping or pipelined or cooperative_mapping:
+        if async_mapping or pipelined or cooperative_mapping or pipeline_depth > 1:
             raise NotImplementedError(
-                "async, pipelined and cooperative modes arrive with ROADMAP.md "
-                "queue 1 item 12; the port runs the synchronous mode"
+                "async, pipelined (pipeline_depth > 1) and cooperative modes "
+                "arrive with ROADMAP.md queue 1 item 12; the port runs the "
+                "synchronous mode"
             )
         if config.sensor not in SENSORS:
             raise ValueError(f"sensor {config.sensor!r}: expected one of {SENSORS}")
@@ -186,12 +195,14 @@ class SlamSystem:
             [config.orb.scale_factor ** i for i in range(config.orb.n_levels)],
             np.float32,
         )
-        # loop closing arrives with ROADMAP.md queue 1 item 11; until then a
-        # run that would reach loop detection raises unless this is False
         self.loop_closing_enabled = True
-        # which tracking paths fired
+        # synchronous mode: mapping runs on the tracking thread, there is no
+        # mapper to wait for and no frame in flight
+        self.mapper = None
+        # which tracking paths fired; a global BA is never aborted in
+        # synchronous mode
         self.stats = {"motion_tracks": 0, "ref_kf_tracks": 0, "vo_tracks": 0,
-                      "relocs": 0, "reloc_rejects": 0}
+                      "relocs": 0, "reloc_rejects": 0, "gba_runs": 0, "gba_aborted": 0}
         # what each candidate of the last _relocalize call gave (see there)
         self.reloc_log: list[dict] = []
         self.localization_only = False
@@ -226,6 +237,7 @@ class SlamSystem:
         self._init_ref: Optional[FrameData] = None
         # localization-only visual-odometry flag (mbVO, Tracking.cc:131)
         self.mb_vo = False
+        self.loop_state = LC.LoopState()
 
     def activate_localization_mode(self):
         """Track against the frozen map without inserting keyframes
@@ -235,6 +247,20 @@ class SlamSystem:
 
     def deactivate_localization_mode(self):
         self.localization_only = False
+
+    # Synchronous forms of the facade's pipeline calls: mapping and loop
+    # closing finish inside the track_* call that inserts a keyframe, so
+    # nothing is ever queued or in flight.
+    def flush_pipeline(self):
+        """Resolve in-flight pipelined frames: there are none."""
+
+    def shutdown(self):
+        """Drain mapping (System::Shutdown, System.cc:336-353): nothing is
+        queued."""
+
+    def wait_mapping_idle(self, timeout: float = 60.0) -> bool:
+        """Mapping is idle whenever a track_* call has returned."""
+        return True
 
     # ------------------------------------------------------------- tracking
     def _to_device(self, host: np.ndarray) -> torch.Tensor:
@@ -888,15 +914,219 @@ class SlamSystem:
         # the keyframe's (remapped) associations (MapPoint::Replace)
         self.last_pt_idx = self.map.kf_point_idx[kf_slot]
 
-    def _try_close_loop(self, kf_slot: int):
-        """Loop detection runs from the JAX package's first keyframe with
-        enough history (its ``_try_close_loop``, system.py:2149)."""
-        if self.n_kf >= self.cfg.loop.kf_gap + 2:
-            raise NotImplementedError(
-                f"keyframe {kf_slot}: loop closing arrives with ROADMAP.md queue 1 "
-                "item 11; set SlamSystem.loop_closing_enabled = False to map "
-                "without it"
-            )
+    # ------------------------------------------------------- loop closing
+    def _try_close_loop(self, kf_slot: int) -> bool:
+        """Detect and correct a loop at keyframe ``kf_slot`` (the
+        LoopClosing::Run body, synchronous).  Each candidate's RANSAC sets
+        come from a CPU generator seeded with the frame id, as the JAX
+        package seeds ``PRNGKey(frame_id)``."""
+        if self.db is None or self.n_kf < self.cfg.loop.kf_gap + 2:
+            return False
+        lcfg, orb = self.cfg.loop, self.cfg.orb
+        covis = covisibility_matrix(self.map)
+        cands = LC.detect(self.loop_state, self.db, kf_slot, self.db.bow[kf_slot], covis,
+                          kf_gap=lcfg.kf_gap,
+                          consistency_th=lcfg.covisibility_consistency_th)
+        for cand in cands:
+            gen = torch.Generator(device="cpu")
+            gen.manual_seed(self.frame_id)
+            ok, R_cm, t_cm, s_cm, pairs = LC.compute_sim3(
+                self.map, self.cam, kf_slot, cand, fix_scale=self.sensor != "monocular",
+                generator=gen, min_inliers=lcfg.min_bow_matches,
+                scale_factor=orb.scale_factor, n_levels=orb.n_levels)
+            if not ok:
+                continue
+            # final acceptance: the loop neighbourhood's landmarks through
+            # the corrected Sim3, enough matches in all (LoopClosing.cc:
+            # 330-373, >= 40)
+            S_cw = self._corrected_sim3(cand, R_cm, t_cm, s_cm)
+            slots = torch.arange(covis.shape[0], device=self.device)
+            group = ((covis[cand] >= 15) | (slots == cand)) & self.map.kf_valid
+            n_total = LC.count_loop_projection_matches(self.map, self.cam, kf_slot, group,
+                                                       *S_cw) + len(pairs)
+            if n_total < lcfg.min_total_matches:
+                continue
+            self._correct_loop(kf_slot, cand, R_cm, t_cm, s_cm)
+            # the global BA (LoopClosing.cc:556), inline in synchronous mode
+            self._launch_gba(kf_slot)
+            return True
+        return False
+
+    def _sim3_on_device(self, R, t, s):
+        """compute_sim3's host (R, t, s) as one copy to the device."""
+        flat = torch.from_numpy(np.concatenate([np.asarray(R, np.float32).reshape(9),
+                                                np.asarray(t, np.float32),
+                                                np.float32([s])])).to(self.device)
+        return flat[:9].reshape(3, 3), flat[9:12], flat[12]
+
+    def _corrected_sim3(self, kf_loop: int, R_cm, t_cm, s_cm):
+        """S_cw = S_cm S_mw, the current keyframe's corrected pose."""
+        T_mw = self.map.kf_pose[kf_loop]
+        S_cm = self._sim3_on_device(R_cm, t_cm, s_cm)
+        return sim3.compose(*S_cm, T_mw[:3, :3], T_mw[:3, 3], torch.ones_like(S_cm[2]))
+
+    def _correct_loop(self, kf_cur: int, kf_loop: int, R_cm, t_cm, s_cm):
+        """CorrectLoop (LoopClosing.cc:375-563), in the reference's order:
+        Sim3 propagation through the current keyframe's covisible group and
+        its points, SearchAndFuse of the loop neighbourhood's landmarks into
+        every corrected keyframe, LoopConnections, the essential graph, the
+        point correction.  The caller runs the global BA after it.  Host
+        reads: the covisibility matrix with the keyframe banks before the
+        fusion, the matrix after it."""
+        m, K = self.map, self.map.kf_pose.shape[0]
+        dev = self.device
+        orb = self.cfg.orb
+        covis_dev = covisibility_matrix(m)
+        host = torch.cat([covis_dev.reshape(-1), m.kf_valid.to(torch.int32), m.kf_parent,
+                          m.kf_loop_edges.reshape(-1)]).cpu().numpy()
+        covis_before = host[:K * K].reshape(K, K)
+        kf_valid = host[K * K:K * K + K] > 0
+        kf_parent = host[K * K + K:K * K + 2 * K]
+        loop_edges = host[K * K + 2 * K:].reshape(K, -1)
+        old_R, old_t = m.kf_pose[:, :3, :3], m.kf_pose[:, :3, 3]
+        old_s = torch.ones(K, dtype=torch.float32, device=dev)
+        S_cw = self._corrected_sim3(kf_loop, R_cm, t_cm, s_cm)
+
+        # propagate to the covisible group (LoopClosing.cc:413-470), every
+        # slot at once: S_iw = T_ic S_cw with T_ic = T_iw T_cw^-1
+        group = sorted({kf_cur} | {int(i) for i in np.where(
+            (covis_before[kf_cur] >= 15) & kf_valid)[0]})
+        slots = torch.arange(K, device=dev)
+        group_mask = ((covis_dev[kf_cur] >= 15) & m.kf_valid) | (slots == kf_cur)
+        T_ic = m.kf_pose @ se3.inv(m.kf_pose[kf_cur])
+        S_iw = sim3.compose(T_ic[:, :3, :3], T_ic[:, :3, 3], old_s, *S_cw)
+        mid_R, mid_t, mid_s = (torch.where(group_mask.reshape((K,) + (1,) * (x.dim() - 1)), x, o)
+                               for x, o in zip(S_iw, (old_R, old_t, old_s)))
+
+        # the group's poses and landmarks corrected in the live map
+        # (LoopClosing.cc:413-508), so fusion happens in the corrected frame
+        ref = torch.clamp(m.pt_ref_kf, min=0).long()
+        pt_group = group_mask[ref] & (m.pt_ref_kf >= 0) & m.pt_valid
+        mid_pts = PG.correct_points_after_pose_graph(m.pt_pos, m.pt_ref_kf, old_R, old_t,
+                                                     old_s, mid_R, mid_t, mid_s)
+        mid_poses = se3.from_rt(mid_R, mid_t / mid_s[:, None])
+        self.map = m = m.replace(
+            kf_pose=torch.where(group_mask[:, None, None], mid_poses, m.kf_pose),
+            pt_pos=torch.where(pt_group[:, None], mid_pts, m.pt_pos))
+
+        # SearchAndFuse (LoopClosing.cc:565-590): the loop neighbourhood's
+        # landmarks into every keyframe of the corrected group, radius th=4
+        loop_group = ((covis_dev[kf_loop] >= 15) | (slots == kf_loop)) & m.kf_valid
+        obs_in_loop = loop_group[torch.clamp(m.pt_obs_kf, min=0).long()] & (m.pt_obs_kf >= 0)
+        loop_pt_mask = m.pt_valid & torch.any(obs_in_loop, dim=1)
+        for i in group:
+            self.map = LM.fuse_into_keyframe(self.map, i, self.cam, loop_pt_mask, budget=1024,
+                                             scale_factor=orb.scale_factor,
+                                             n_levels=orb.n_levels, th=4.0)
+        self.map = update_point_stats(self.map, scale_factor=orb.scale_factor,
+                                      n_levels=orb.n_levels)
+
+        # LoopConnections (LoopClosing.cc:517-539): covisibility the fusion
+        # just created between the corrected group and the rest
+        covis_after = covisibility_matrix(self.map).cpu().numpy()
+        in_group = set(group)
+        loop_connections = [
+            (i, int(j)) for i in group
+            for j in np.where((covis_after[i] >= 15) & (covis_before[i] < 15))[0]
+            if int(j) not in in_group and kf_valid[j]]
+
+        # the essential graph: spanning tree and strong covisibility from
+        # the pre-correction geometry (NonCorrectedSim3), earlier loop
+        # edges, the new loop connections measured in the corrected frame,
+        # and the measured loop edge itself (M_ji with i = loop, j = current
+        # is S_cm)
+        historic = [(k, int(le)) for k in range(self.n_kf) for le in loop_edges[k]
+                    if le >= 0 and le > k]
+        edge_sets = [LC.build_essential_graph_edges(
+            kf_parent, covis_before, kf_valid, historic, old_R, old_t, old_s,
+            min_covis_weight=self.cfg.map.ess_graph_min_weight)]
+        if loop_connections:
+            lij = torch.tensor(loop_connections, dtype=torch.int32).T.to(dev)
+            edge_sets.append(PG.make_edges_from_poses(
+                lij[0], lij[1], mid_R, mid_t, mid_s,
+                torch.ones(len(loop_connections), dtype=torch.bool, device=dev)))
+        S_cm_dev = self._sim3_on_device(R_cm, t_cm, s_cm)
+        ij = torch.tensor([[kf_loop], [kf_cur]], dtype=torch.int32).to(dev)
+        edge_sets.append(PG.PoseGraphEdges(
+            i=ij[0], j=ij[1], R=S_cm_dev[0][None], t=S_cm_dev[1][None],
+            s=S_cm_dev[2][None], weight=torch.ones(1, device=dev),
+            valid=torch.ones(1, dtype=torch.bool, device=dev)))
+        edges = PG.PoseGraphEdges(*[torch.cat(parts) for parts in zip(*edge_sets)])
+
+        mcfg = self.cfg.map
+        solver = mcfg.pose_graph_solver
+        if solver == "auto":
+            solver = "pcg" if K > mcfg.pose_graph_dense_max else "dense"
+        opt_R, opt_t, opt_s = PG.optimize_pose_graph(
+            mid_R, mid_t, mid_s, self.map.kf_valid, slots == kf_loop, edges,
+            fix_scale=self.sensor != "monocular", solver=solver,
+            n_cg=mcfg.pose_graph_cg_iters or None)
+
+        # landmarks through their reference keyframes, from the propagated
+        # (mid) frame the group's points are already in; Sim3 nodes back to
+        # SE3 (LoopClosing.cc:488)
+        m = self.map
+        new_pts = PG.correct_points_after_pose_graph(m.pt_pos, m.pt_ref_kf, mid_R, mid_t,
+                                                     mid_s, opt_R, opt_t, opt_s)
+        new_poses = se3.from_rt(opt_R, opt_t / opt_s[:, None])
+        loop_edges_dev = m.kf_loop_edges.clone()
+        loop_edges_dev[kf_cur, 0:1].fill_(kf_loop)
+        loop_edges_dev[kf_loop, 0:1].fill_(kf_cur)
+        self.map = m.replace(
+            kf_pose=torch.where(m.kf_valid[:, None, None], new_poses, m.kf_pose),
+            pt_pos=torch.where(m.pt_valid[:, None], new_pts, m.pt_pos),
+            kf_loop_edges=loop_edges_dev)
+        self.map = update_point_stats(self.map, scale_factor=orb.scale_factor,
+                                      n_levels=orb.n_levels)
+        self.loop_state.last_loop_kf = kf_cur
+        self.last_pose = self.map.kf_pose[kf_cur]
+        self.velocity = None
+
+    # ------------------------------------------------------------ global BA
+    def _global_ba(self, window_mask, fixed_mask, iters: int):
+        """Whole-map BA with the matrix-free Schur PCG solver
+        (Optimizer::GlobalBundleAdjustemnt, Optimizer.cc:43-50), written
+        back with its outliers erased."""
+        prob = map_ops.build_ba_problem(self.map, window_mask, fixed_mask,
+                                        self.inv_sigma2_table)
+        result = BA.run(self.cam, prob, iters_phase1=iters, iters_phase2=0, solver="pcg",
+                        n_cg=self.cfg.map.gba_cg_iters)
+        self.map = map_ops.writeback_ba(self.map, result.kf_poses, result.points,
+                                        result.obs_valid, prob)
+
+    def _launch_gba(self, kf_cur: int, iters: int = 10):
+        """RunGlobalBundleAdjustment (LoopClosing.cc:618-715): the whole map
+        with the PCG solver, the origin keyframe fixed.  Synchronous mode
+        runs it inline on the live map; the thread over a snapshot, its
+        abort flag and epoch check arrive with ROADMAP.md queue 1 item 12."""
+        self._gba_worker(self.map, self.n_kf, self.n_pt, iters)
+
+    def _gba_worker(self, snapshot, n_kf_snap: int, n_pt_snap: int, iters: int):
+        K = snapshot.kf_pose.shape[0]
+        slots = torch.arange(K, device=self.device)
+        prob = map_ops.build_ba_problem(snapshot, snapshot.kf_valid & (slots != 0),
+                                        slots == 0, self.inv_sigma2_table)
+        result = BA.run(self.cam, prob, iters_phase1=iters, iters_phase2=0, solver="pcg",
+                        n_cg=self.cfg.map.gba_cg_iters)
+        self.stats["gba_runs"] += 1
+        self._merge_gba_result(snapshot, result, n_kf_snap, n_pt_snap)
+
+    def _merge_gba_result(self, snapshot, result, n_kf_snap: int, n_pt_snap: int):
+        """The GBA's poses and points into the live map (LoopClosing.cc:
+        648-703), without its outlier classification.  In synchronous mode
+        the map took no keyframe and no point while the GBA ran, so the
+        spanning-tree propagation of corrections to newer ones has nothing
+        to move."""
+        m = self.map
+        K, P = m.kf_pose.shape[0], m.pt_pos.shape[0]
+        in_gba = (snapshot.kf_valid & (torch.arange(K, device=self.device) < n_kf_snap)
+                  & m.kf_valid)
+        in_gba_pt = (snapshot.pt_valid & (torch.arange(P, device=self.device) < n_pt_snap)
+                     & m.pt_valid)
+        self.map = m.replace(
+            kf_pose=torch.where(in_gba[:, None, None], result.kf_poses, m.kf_pose),
+            pt_pos=torch.where(in_gba_pt[:, None], result.points, m.pt_pos))
+        self.last_pose = self.map.kf_pose[self.ref_kf]
 
     # ------------------------------------------------------- local mapping
     def _mapping_steps(self, kf_slot: int):

@@ -1,6 +1,6 @@
 """Raycast renderer for rendered test and smoke fixtures (port of the parts
-of utils/world3d.py that the room fixture uses: RGB-D, stereo pairs and
-monocular images).
+of utils/world3d.py that the room fixture and the street circuit use:
+RGB-D, stereo pairs and monocular images).
 
 The scene and trajectory builders are numpy and produce the same arrays as
 the JAX module's; the raycaster is the same ray/plane arithmetic and
@@ -285,6 +285,76 @@ def scene_room(seed=11) -> World3D:
     return World3D(surfaces=surfs)
 
 
+def scene_street(seed=23, block=60.0, road_w=14.0) -> World3D:
+    """KITTI-like city block: drive a rectangular loop of length
+    ~4*(block+road_w); building facades + ground plane."""
+    rng = np.random.default_rng(seed)
+    surfs = []
+    L = block + road_w          # loop leg length (centerline)
+    half = road_w / 2.0
+    G = L + half + 30
+    surfs.append(Surface([-G, -G, 0.0], [2 * G, 0, 0], [0, 2 * G, 0], seed * 99, albedo=0.7))
+
+    def facades(x0, y0, x1, y1, hgt, sd):
+        return box_surfaces(
+            [(x0 + x1) / 2, (y0 + y1) / 2, hgt / 2],
+            [abs(x1 - x0), abs(y1 - y0), hgt], seed=sd, albedo=0.95,
+        )
+
+    b = block / 2.0
+    surfs += facades(-b + 4, -b + 4, b - 4, b - 4, rng.uniform(8, 14), seed * 10)
+    road_outer = L / 2 + half           # outer edge of the square road ring
+    # building/parked-box counts scale with the block so content density per
+    # meter of road matches the 22 m test circuit at any fixture scale
+    n_ring = max(10, int(round(10 * L / 30.0)))
+    for i in range(n_ring):
+        ang = i / n_ring * 2 * np.pi
+        w_, d_ = rng.uniform(10, 22), rng.uniform(8, 18)
+        # place centers on the square ring outside the road: project the
+        # direction onto the unit square boundary so the building's nearest
+        # face clears the road's outer edge by >= 1.5 m regardless of angle
+        # (a Euclidean ring lets large boxes jut into the road at mid-leg)
+        dx, dy = np.cos(ang), np.sin(ang)
+        s_ = 1.0 / max(abs(dx), abs(dy))
+        m = max(w_, d_) / 2.0
+        rc = road_outer + 1.5 + m + rng.uniform(0, 8)
+        cx, cy = dx * s_ * rc, dy * s_ * rc
+        surfs += facades(cx - w_ / 2, cy - d_ / 2, cx + w_ / 2, cy + d_ / 2,
+                         rng.uniform(6, 12), seed * 10 + 11 * (i + 1))
+    # corner buildings on the four diagonals: during a turn the camera looks
+    # straight at the corner, and a texture gap there starves matching for
+    # several consecutive frames (the ring above samples 36-degree steps and
+    # misses the 45+90k diagonals)
+    for i, ang in enumerate((0.25, 0.75, 1.25, 1.75)):
+        dx, dy = np.cos(ang * np.pi), np.sin(ang * np.pi)
+        w_, d_ = rng.uniform(12, 18), rng.uniform(10, 16)
+        m = max(w_, d_) / 2.0
+        rc = road_outer + 1.5 + m
+        cx, cy = dx * np.sqrt(2.0) * rc, dy * np.sqrt(2.0) * rc
+        surfs += facades(cx - w_ / 2, cy - d_ / 2, cx + w_ / 2, cy + d_ / 2,
+                         rng.uniform(7, 12), seed * 10 + 501 + 13 * i)
+    n_box = max(14, int(round(28 * b / 11.0)))
+    for i in range(n_box):
+        leg = rng.integers(0, 4)
+        along = rng.uniform(-b, b)
+        # parked boxes go on the OUTER side of the road only: the rounded
+        # corners (traj_street_loop smoothing) cut several meters inside the
+        # centerline, so inner-side boxes would end up in the camera's path
+        lat = (b + half) + rng.uniform(3.0, 5.5)
+        if leg == 0:
+            c = [along, -lat, 0.8]
+        elif leg == 1:
+            c = [lat, along, 0.8]
+        elif leg == 2:
+            c = [along, lat, 0.8]
+        else:
+            c = [-lat, along, 0.8]
+        surfs += box_surfaces(c, [rng.uniform(1.5, 4.0), rng.uniform(1.5, 2.2), 1.6],
+                              seed=seed * 10 + 201 + 3 * i, albedo=0.85)
+    return World3D(surfaces=surfs)
+
+
+
 # -------------------------------------------------------------- trajectories
 def _look_at(eye, target, up):
     """World->camera pose (Tcw) looking from eye toward target
@@ -333,3 +403,47 @@ def traj_room_orbit(n_frames, seed=5, span=1.15 * np.pi):
         for i in range(n_frames)
     ])
     return poses.astype(np.float64)
+
+
+def traj_street_loop(n_frames, block=60.0, road_w=14.0, seed=7, smooth=45,
+                     laps=1.0):
+    """Drive the rectangular block loop, closing back at the start
+    (KITTI-00-style loop closure).
+
+    ``smooth`` sets the corner-rounding window in waypoints (of 200): the
+    default spreads each 90-degree turn over ~smooth/200 of the path so the
+    yaw rate stays in the range of real automotive motion (KITTI turns at
+    <= ~2 deg/frame at 10 fps; harsher values are for stress tests).
+    ``laps`` > 1 keeps driving past the closure point (the path is closed,
+    so arclength wraps smoothly) — loop-closure consistency gates need a few
+    keyframes *after* the revisit to fire (LoopClosing.cc:150-201)."""
+    b = (block + road_w) / 2.0
+    leg = np.linspace(-b, b, 50)
+    wps = (
+        [(x, -b) for x in leg] + [(b, y) for y in leg] +
+        [(x, b) for x in -leg] + [(-b, y) for y in -leg]
+    )
+    wps = np.asarray(wps)
+    k = smooth
+    pad = np.vstack([wps[-k:], wps, wps[:k]])
+    kernel = np.ones(k) / k
+    sx = np.convolve(pad[:, 0], kernel, "same")[k:-k]
+    sy = np.convolve(pad[:, 1], kernel, "same")[k:-k]
+    d = np.hypot(np.diff(sx), np.diff(sy))
+    arc = np.concatenate([[0], np.cumsum(d)])
+    si = np.linspace(0, arc[-1] * laps, n_frames) % arc[-1]
+    px = np.interp(si, arc, sx)
+    py = np.interp(si, arc, sy)
+    z = 1.65
+    poses = []
+    for i in range(n_frames):
+        # forward tangent; the last frame keeps looking along its arrival
+        # direction instead of snapping to a degenerate difference
+        j = min(i + 1, n_frames - 1)
+        i0 = i if j > i else i - 1
+        fwd = np.asarray([px[j] - px[i0], py[j] - py[i0], 0.0])
+        if np.linalg.norm(fwd) < 1e-9:
+            fwd = np.asarray([1.0, 0, 0])
+        eye = [px[i], py[i], z]
+        poses.append(_look_at(eye, list(np.asarray(eye) + fwd * 5), [0, 0, 1]))
+    return np.stack(poses).astype(np.float64)

@@ -1,0 +1,62 @@
+"""The facade calls that drivers make, on the port's synchronous system
+(CPU): the sequence of ``bench.py`` (frames, ``flush_pipeline``,
+``reset``, frames again, ``flush_pipeline``, ``n_kf``,
+``wait_mapping_idle(timeout=60)``, the ``mapper`` check) and of
+``scripts/run_dataset.py`` (frames, ``shutdown``), on the
+``test_torch_sequence.py`` RGB-D scenario.  None of them waits for
+anything: the poses and the map are those of the same frames without the
+calls.  ``pipeline_depth`` 1 is accepted; above 1, and the pipelined,
+async and cooperative modes, raise naming ROADMAP.md queue 1 item 12.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from refactored_orb_slam2_tpu_torch.system import SlamSystem
+from test_torch_sequence import TCFG, lateral_traj, render
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def frames():
+    return render(lateral_traj(6))
+
+
+def _track(slam, frames):
+    return [slam.track_rgbd(img, depth, i * 0.1) for i, (img, depth) in enumerate(frames)]
+
+
+def test_bench_call_sequence(frames):
+    slam = SlamSystem(TCFG, device="cpu", pipeline_depth=1)
+    plain = SlamSystem(TCFG, device="cpu")
+    _track(slam, frames[:3])                 # bench.py's pre-roll
+    slam.flush_pipeline()
+    slam.reset()
+    out = _track(slam, frames)
+    slam.flush_pipeline()
+    n_kf_end = slam.n_kf
+    assert slam.wait_mapping_idle(timeout=60)
+    assert slam.mapper is None
+    ref = _track(plain, frames)
+    assert n_kf_end == plain.n_kf and slam.n_pt == plain.n_pt
+    for a, b in zip(out, ref):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(slam.frame_poses(), plain.frame_poses())
+
+
+def test_run_dataset_shutdown(frames):
+    slam = SlamSystem(TCFG, device="cpu")
+    _track(slam, frames)
+    n_kf, poses = slam.n_kf, slam.frame_poses()
+    slam.shutdown()
+    assert slam.n_kf == n_kf and slam.wait_mapping_idle()
+    np.testing.assert_array_equal(slam.frame_poses(), poses)
+
+
+@pytest.mark.parametrize("kw", [dict(pipeline_depth=3), dict(pipelined=True),
+                                dict(async_mapping=True), dict(cooperative_mapping=True)])
+def test_other_modes_raise_naming_item_12(kw):
+    with pytest.raises(NotImplementedError, match="item 12"):
+        SlamSystem(TCFG, device="cpu", **kw)

@@ -222,7 +222,8 @@ def test_port_imports_no_jax():
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
     for module in ("system", "solvers.initializer", "utils.presets", "ops.stereo",
                    "geometry.triangulation", "place.vocab", "place.keyframe_db",
-                   "solvers.epnp"):
+                   "solvers.epnp", "geometry.sim3", "solvers.horn_sim3", "optim.pose_graph",
+                   "backend.loop_closing"):
         assert f"refactored_orb_slam2_tpu_torch.{module}" in names
     code = (
         "import importlib, sys\n"

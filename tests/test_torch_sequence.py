@@ -14,8 +14,8 @@
   the system (n_kf <= 5) and the one after initializes it again.
 - Fallback: the camera turns 0.15 rad between two frames, the motion model
   fails and TrackReferenceKeyFrame carries the frames.
-- Loop closing (ROADMAP item 11) raises at the first keyframe where the JAX
-  package would run loop detection, unless ``loop_closing_enabled`` is off.
+- Loop closing is off here; ``test_torch_lost_fallback.py`` runs the
+  scenario with it on, past 12 keyframes.
 """
 
 import jax.numpy as jnp

@@ -6,9 +6,11 @@ tests/test_torch_smoke_reference.py -s``).
 Each case renders the script's frames with the port's renderer on the CPU
 (``chip_smoke.render_frames``: the room orbit, one noise generator in
 order), feeds them to a JAX ``SlamSystem`` with the script's configuration,
-synchronous mapping, loop closing off, and holds the script's ``JAX_*``
-constant to the ATE it measures (within 5%: another CPU's float order may
-move it a little).  Then it runs the script's phase 9 on the same system:
+synchronous mapping, loop closing on (the facade's default, as in the
+script), and holds the script's ``JAX_*`` constant to the ATE it measures
+(within 5%: another CPU's float order may move it a little) and
+``JAX_LOOP_DETECTION`` to the keyframes that reached loop detection and the
+loops closed (RGB-D and stereo map fewer than ``kf_gap + 2`` keyframes).  Then it runs the script's phase 9 on the same system:
 for RGB-D first phase 6 (localization-only over the last 40 frames in
 reverse order), then two grey frames and the path's orbit frames
 (``chip_smoke.reloc_episode``), and for RGB-D once more in
@@ -16,6 +18,12 @@ localization-only mode.  It holds ``chip_smoke.JAX_RELOC`` to the frame that
 relocalized and the camera centre's distance from the rendered one (within
 5% or 0.1 mm).  It prints frames tracked, n_kf, n_pt, the ATE and each
 relocalization, which PERF.md quotes as "JAX on the CPU".
+
+``test_jax_reference_circuit`` runs phase 10's street circuit
+(``chip_smoke.render_circuit``, the card's map capacity) and holds
+``JAX_CIRCUIT``: frames lost, the loop's keyframe pair and frame, GBA runs
+and the rigidly aligned ATE (within 5%).  About 18 minutes on 8 cores, most
+of it in the global BA over all 65536 x 32 observation slots.
 """
 
 import dataclasses
@@ -64,6 +72,53 @@ def _reloc(slam, track, frames, grey, path, t0, gt, align):
             slam.stats["reloc_rejects"])
 
 
+def _watch_loops(slam):
+    """Lists that fill with the keyframes reaching loop detection and the
+    (loop, current) keyframe pairs corrected."""
+    detected, closed = [], []
+    detect, correct = slam._try_close_loop, slam._correct_loop
+
+    def watched_detect(kf_slot):
+        if slam.db is not None and slam.n_kf >= slam.cfg.loop.kf_gap + 2:
+            detected.append(kf_slot)
+        return detect(kf_slot)
+
+    def watched_correct(kf_cur, kf_loop, *a):
+        closed.append((int(kf_loop), int(kf_cur), slam.frame_id))
+        return correct(kf_cur, kf_loop, *a)
+
+    slam._try_close_loop, slam._correct_loop = watched_detect, watched_correct
+    return detected, closed
+
+
+@pytest.mark.slow
+def test_jax_reference_circuit():
+    cfg = chip_smoke.circuit_config()
+    poses = chip_smoke.circuit_poses()
+    frames = [tuple(t.numpy() for t in f) for f in chip_smoke.render_circuit(poses, "cpu")]
+    slam = JSlam(reference_config(cfg))
+    detected, closed = _watch_loops(slam)
+    lost = sum(slam.track_stereo_device(*f, i / cfg.camera.fps) is None
+               for i, f in enumerate(frames))
+    gt = chip_smoke.world_centres(poses)
+    ate = chip_smoke.ate_rmse_se3(slam.camera_centers(), gt[slam.tracked_frame_ids()])
+    path = float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum())
+    edges = np.asarray(slam.map.kf_loop_edges)
+    pairs = sorted({tuple(sorted((k, int(x)))) for k in range(edges.shape[0])
+                    for x in edges[k] if x >= 0})
+    kf_frame = np.asarray(slam.map.kf_frame_id)
+    pair_frames = [tuple(int(kf_frame[k]) for k in pair) for pair in pairs]
+    print(f"\nJAX on the CPU, circuit: lost {lost}, n_kf {slam.n_kf}, n_pt {slam.n_pt}, "
+          f"loop detection at {len(detected)} keyframes, loops (loop, current, frame) {closed}, "
+          f"kf_loop_edges pairs {pairs} made at frames {pair_frames}, paths {slam.stats}, "
+          f"ATE {ate:.7f} m over {path:.2f} m")
+    expect = chip_smoke.JAX_CIRCUIT
+    assert lost == expect["lost"] and slam.stats["gba_runs"] == expect["gba_runs"]
+    assert pairs == [expect["loop"]] and pair_frames == [expect["loop_frames"]]
+    assert closed[0][2] == expect["frame"]
+    assert abs(ate - expect["ate"]) <= 0.05 * ate and ate < 0.01 * path
+
+
 @pytest.mark.slow
 @pytest.mark.parametrize("sensor", sorted(CASES))
 def test_jax_reference_run_gives_the_smoke_constant(sensor):
@@ -72,7 +127,8 @@ def test_jax_reference_run_gives_the_smoke_constant(sensor):
     poses = chip_smoke.smoke_poses()
     frames = [tuple(t.numpy() for t in f) for f in chip_smoke.render_frames(cfg, poses, "cpu")]
     slam = JSlam(reference_config(cfg))
-    slam.loop_closing_enabled = False
+    assert slam.loop_closing_enabled
+    detected, closed = _watch_loops(slam)
     entry = {"rgbd": slam.track_rgbd_device, "stereo": slam.track_stereo_device,
              "monocular": slam.track_monocular_device}[sensor]
     out = [entry(*frame, i / cfg.camera.fps) for i, frame in enumerate(frames)]
@@ -85,9 +141,11 @@ def test_jax_reference_run_gives_the_smoke_constant(sensor):
     kf_frames = np.asarray(slam.map.kf_frame_id)[:slam.n_kf].tolist()
     print(f"\nJAX on the CPU, {sensor}: {sum(tracked)}/{len(frames) - first} tracked from "
           f"frame {first}, n_kf {slam.n_kf} at frames {kf_frames}, n_pt {slam.n_pt}, "
-          f"culled {sorted(slam.culled_chain)}, ATE {ate:.7f} m, paths {slam.stats}")
+          f"culled {sorted(slam.culled_chain)}, ATE {ate:.7f} m, paths {slam.stats}, "
+          f"loop detection at {len(detected)} keyframes (first {detected[:1]}), loops {closed}")
     assert sum(tracked) >= 0.9 * (len(frames) - first)
     assert abs(ate - getattr(chip_smoke, constant)) <= 0.05 * ate
+    assert (len(detected), closed) == chip_smoke.JAX_LOOP_DETECTION[sensor]
 
     # phase 9 (after phase 6 for RGB-D), on the same system
     track = lambda f, i: entry(*f, i / cfg.camera.fps)

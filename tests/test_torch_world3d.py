@@ -1,6 +1,7 @@
 """The port's fixture renderer against the JAX module's: identical numpy
-scene and trajectory builders, an exact lattice hash, and a 160x120 render
-that agrees given the same numpy noise image (intensity within 1 on >= 99.5%
+scene and trajectory builders (the room orbit and the street circuit), an
+exact lattice hash, and 160x120 renders (room RGB-D, room and street
+stereo) that agree given the same numpy noise image (intensity within 1 on >= 99.5%
 of pixels — a float32 ray/plane product in another order can move a texel
 edge by a fraction of a pixel — and depth within 1e-4 m where both hit).
 """
@@ -104,3 +105,44 @@ def test_render_stereo_matches_jax():
     assert dl.dtype == dr.dtype == torch.uint8
     np.testing.assert_array_equal(dl.numpy(), np.clip(tl, 0, 255).astype(np.uint8))
     np.testing.assert_array_equal(dr.numpy(), np.clip(tr, 0, 255).astype(np.uint8))
+
+
+@pytest.mark.parametrize("seed,block,road_w", [(41, 22.0, 8.0), (23, 60.0, 14.0)])
+def test_scene_street_surfaces_identical(seed, block, road_w):
+    js = JW.scene_street(seed=seed, block=block, road_w=road_w)
+    ts = TW.scene_street(seed=seed, block=block, road_w=road_w)
+    assert len(js.surfaces) == len(ts.surfaces)
+    for a, b in zip(js.surfaces, ts.surfaces):
+        for name in ("p0", "eu", "ev", "normal"):
+            np.testing.assert_array_equal(getattr(b, name), getattr(a, name))
+        assert (a.seed, a.albedo) == (b.seed, b.albedo)
+
+
+def test_traj_street_loop_identical():
+    for n, kw in ((140, dict(block=22.0, road_w=8.0, seed=41, laps=140 / 110.0)),
+                  (150, dict(block=22.0, road_w=8.0, seed=41, laps=150 / 110.0)),
+                  (60, dict()), (30, dict(smooth=20))):
+        np.testing.assert_array_equal(TW.traj_street_loop(n, **kw), JW.traj_street_loop(n, **kw))
+
+
+def test_street_circuit_stereo_frames_match_jax():
+    """Frames 0, 50 and 123 of the stereo street circuit (the loop test's
+    fixture, rendered with the true focal), at 160x120: within 1 grey level
+    on >= 99.5% of the pixels, as the room's; the uint8 device pair equals
+    the host pair."""
+    cam = camera_from_config(config_from_reference(CameraConfig(
+        fx=160.0, fy=160.0, cx=80.0, cy=60.0, bf=60.0, width=160, height=120)))
+    poses = JW.traj_street_loop(140, block=22.0, road_w=8.0, seed=41, laps=140 / 110.0)
+    jworld = JW.scene_street(seed=41, block=22.0, road_w=8.0)
+    world = TW.scene_street(seed=41, block=22.0, road_w=8.0)
+    jrng, trng, drng = (np.random.default_rng(6) for _ in range(3))
+    for i in (0, 50, 123):
+        jl, jr = jworld.render_stereo(poses[i], cam, noise=2.0, rng=jrng)
+        tl, tr = world.render_stereo(poses[i], cam, noise=2.0, rng=trng)
+        dl, dr = world.render_stereo_device(poses[i], cam, noise=2.0, rng=drng, device="cpu")
+        for got, ref in ((tl, jl), (tr, jr)):
+            assert got.shape == ref.shape == (120, 160)
+            assert (np.abs(got - ref) <= 1.0).mean() >= 0.995, i
+        assert np.abs(tl - tr).mean() > 1.0
+        np.testing.assert_array_equal(dl.numpy(), np.clip(tl, 0, 255).astype(np.uint8))
+        np.testing.assert_array_equal(dr.numpy(), np.clip(tr, 0, 255).astype(np.uint8))
