@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--kernels-only | --circuit-only]
+    python3 chip_smoke.py [--kernels-only | --circuit-only | --io-only]
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
 
@@ -103,12 +103,30 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    compute_sim3, the projection count, _correct_loop in four spans and the
    global BA, the loop keyframe's host syncs and launches, the run's
    launches and its peak device memory.
+11. I/O and the drivers — on the RGB-D system after phase 9 (in
+   --io-only mode, after phase 4), at the card's map (512 x 65536 x 32):
+   save_map into a temporary directory (its time and the file's size);
+   load_map into a fresh SlamSystem(device="cuda"), every MapState field,
+   the vocabulary and the KeyFrameDB banks torch.equal and the counters and
+   culled chain equal (its time); the loaded system set LOST (the JAX
+   loader leaves a fresh system NOT_INITIALIZED, a fault of the reference)
+   and in localization-only mode relocalizes at orbit frame 120 within
+   RELOC_BOUND_M["localization"], tracks 121-123 with the map unchanged and
+   a window_match launch on the relocalization frame; then, mapping again,
+   tracks 124-159 with none lost and prints the keyframes it added.  Then
+   the dataset driver's loop (scripts/run_dataset.py::track_frames) over
+   host copies of all 160 frames on a fresh system through track_rgbd, the
+   TUM, KITTI and keyframe exports and a ground-truth TUM file, and
+   scripts/evaluate.py (a subprocess) on the pair: ATE under ATE_BOUND_M;
+   its median frame beside phase 4's device-entry one.  Last, one pass of
+   the port's bench (refactored_orb_slam2_tpu_torch/bench.py), its JSON
+   line printed.  Both kernels must launch on this path ("io").
 
 Phases 7 and 8 also print the synchronized stage times of a tracked frame
 on a second system (frames 4-7 after the first tracked one).  Every path is
 driven with the kernels' launch counts set to 0 just before it and read
 just after ("relocalization" sums phase 9's four episodes, "loop" is
-phase 10).
+phase 10, "io" phase 11 from its relocalization on).
 ``tests/test_torch_smoke_reference.py`` (marked slow) runs the JAX package
 on the CPU over the same frames (phase 10: the circuit's) and holds the
 JAX_* constants below to what it gives.
@@ -1005,7 +1023,8 @@ def _sequence(cfg, frames, poses, ate_bound: float, card: str):
               f"{sum(init_sites.values())} host syncs in that frame at "
               + ", ".join(f"{k} x{v}" for k, v in sorted(init_sites.items())))
     return slam, dict(launches=launches, n_kf=slam.n_kf,
-                      steady_ms=float(np.median(ms[steady])))
+                      steady_ms=float(np.median(ms[steady])),
+                      median_ms=float(np.median(ms[first + 2:])))
 
 
 def _localization(slam, frames, card: str) -> dict:
@@ -1329,6 +1348,187 @@ def _circuit(card: str) -> dict:
     return launches
 
 
+# Phase 11: the orbit frames the loaded map is relocalized on, in
+# localization-only mode; the frames after them map on from it.
+IO_RELOC_STEPS = range(120, 124)
+
+
+def _same_map(a, b) -> list:
+    """The names of the map banks, counters, vocabulary tensors and database
+    banks in which two systems differ."""
+    import dataclasses
+
+    from refactored_orb_slam2_tpu_torch.models.map_state import MapState
+
+    diff = [f.name for f in dataclasses.fields(MapState)
+            if not torch.equal(getattr(a.map, f.name), getattr(b.map, f.name))]
+    diff += [name for name in ("words", "words_pm1", "idf")
+             if not torch.equal(getattr(a.vocab, name), getattr(b.vocab, name))]
+    diff += [name for name in ("bow", "valid")
+             if not torch.equal(getattr(a.db, name), getattr(b.db, name))]
+    diff += [name for name in ("n_kf", "n_pt", "ref_kf") if getattr(a, name) != getattr(b, name)]
+    if (a.culled_chain.keys() != b.culled_chain.keys()
+            or any(not np.array_equal(a.culled_chain[k][0], b.culled_chain[k][0])
+                   or a.culled_chain[k][1] != b.culled_chain[k][1] for k in a.culled_chain)):
+        diff.append("culled_chain")
+    return diff
+
+
+def _io(slam, frames, poses, device_median_ms: float, card: str) -> dict:
+    """Phase 11, I/O and the drivers, on the RGB-D system: save its map,
+    load it into a fresh system (every bank equal), relocalize on the loaded
+    map in localization-only mode and map on from it; then the dataset
+    driver's loop over host copies of the frames on a fresh system, its
+    exports read by scripts/evaluate.py, and one pass of the port's bench.
+    Returns the launches of 11.3-11.6 (the "io" path)."""
+    import io
+    import tempfile
+
+    from refactored_orb_slam2_tpu_torch import bench
+    from refactored_orb_slam2_tpu_torch.io.checkpoint import load_map, save_map
+    from refactored_orb_slam2_tpu_torch.ops import cuda_hamming
+    from refactored_orb_slam2_tpu_torch.scripts.run_dataset import track_frames
+    from refactored_orb_slam2_tpu_torch.system import SlamSystem, TrackState, _write_tum
+
+    cfg, fps = slam.cfg, slam.cfg.camera.fps
+    gt = gt_centres(poses)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- 11.1 save
+        path = os.path.join(tmp, "map.npz")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_map(path, slam)
+        save_s = time.perf_counter() - t0
+        print(f"io, save: map of n_kf {slam.n_kf}, n_pt {slam.n_pt} (capacity "
+              f"{cfg.map.max_keyframes} x {cfg.map.max_points} x {cfg.map.max_obs_per_point}) "
+              f"saved in {save_s:.3f} s, file {os.path.getsize(path)} B "
+              f"(np.savez_compressed, host clock; {card})")
+
+        # ---- 11.2 load into a fresh system: every bank equal
+        loaded = SlamSystem(cfg, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        load_map(path, loaded)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        diff = _same_map(slam, loaded)
+        if diff:
+            raise AssertionError(f"io: the loaded map differs in {diff}")
+        # the host synchronizations of each, once more under sync-debug mode
+        syncs = {"save_map": collections.Counter(), "load_map": collections.Counter()}
+        with _sync_sites(syncs["save_map"]):
+            save_map(os.path.join(tmp, "again.npz"), slam)
+        with _sync_sites(syncs["load_map"]):
+            load_map(path, SlamSystem(cfg, device="cuda"))
+        print(f"io, load: every MapState field, the vocabulary (words, planes, idf), the "
+              f"KeyFrameDB (bow, valid), n_kf, n_pt, ref_kf and culled_chain equal to the "
+              f"saved system's; loaded in {load_s:.3f} s (host clock with synchronize; {card}); "
+              + "; ".join(f"{name}: {sum(c.values())} host syncs" for name, c in syncs.items()))
+
+        # ---- 11.3 relocalize on the loaded map, localization-only mode.  The
+        # load leaves the system NOT_INITIALIZED, as the JAX loader does (a
+        # fault of the reference, ROADMAP.md: its next frame would start a
+        # second map), so the system is set LOST, which is what the JAX
+        # docstring's "relocalizes against the loaded map immediately" needs.
+        loaded.state = TrackState.LOST
+        loaded.activate_localization_mode()
+        n_map = (loaded.n_kf, loaded.n_pt)
+        cuda_hamming.reset_launches()
+        out = []
+        for k, i in enumerate(IO_RELOC_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out.append(track_device(loaded, frames[i], k))
+            torch.cuda.synchronize()
+            if k == 0:
+                reloc_ms = (time.perf_counter() - t0) * 1e3
+                relocs, reloc_launches = loaded.stats["relocs"], dict(cuda_hamming.launches)
+        first = IO_RELOC_STEPS[0]
+        if out[0] is None or relocs != 1:
+            raise AssertionError(f"io: orbit frame {first} did not relocalize on the loaded map "
+                                 f"(relocs {relocs}, reloc_rejects "
+                                 f"{loaded.stats['reloc_rejects']})")
+        err = centre_error(out[0], gt[first])
+        if not err < RELOC_BOUND_M["localization"]:
+            raise AssertionError(f"io: relocalized centre {err:.6f} m from the rendered one, "
+                                 f"bound {RELOC_BOUND_M['localization']:.6f} m")
+        if any(p is None for p in out[1:]) or (loaded.n_kf, loaded.n_pt) != n_map:
+            raise AssertionError(f"io: after the relocalization {[p is not None for p in out]} "
+                                 f"tracked, map {n_map} -> {(loaded.n_kf, loaded.n_pt)}")
+        if reloc_launches["window_match"] < 1:
+            raise AssertionError("io: no window_match launch on the relocalization frame")
+        print(f"io, relocalization on the loaded map (localization-only): orbit frame {first} "
+              f"relocalized, centre error {err:.6f} m (bound {RELOC_BOUND_M['localization']} m; "
+              f"phase 9's JAX figure {JAX_RELOC['localization'][1]} m), frames "
+              f"{IO_RELOC_STEPS[1]}-{IO_RELOC_STEPS[-1]} tracked, n_kf {n_map[0]} and n_pt "
+              f"{n_map[1]} unchanged; relocalization frame {reloc_ms:.2f} ms (host clock with "
+              f"synchronize; {card}), its launches {reloc_launches}")
+
+        # ---- 11.4 map on from the load
+        loaded.deactivate_localization_mode()
+        kf_frames, k0 = [], len(IO_RELOC_STEPS)
+        for k, i in enumerate(range(IO_RELOC_STEPS[-1] + 1, len(frames))):
+            n_kf = loaded.n_kf
+            if track_device(loaded, frames[i], k0 + k) is None:
+                raise AssertionError(f"io: frame {i} lost while mapping on from the loaded map")
+            if loaded.n_kf != n_kf:
+                kf_frames.append(i)
+        torch.cuda.synchronize()
+        print(f"io, mapping on from the loaded map: frames {IO_RELOC_STEPS[-1] + 1}-"
+              f"{len(frames) - 1} tracked, keyframes added at frames {kf_frames} "
+              f"(n_kf {n_map[0]} -> {loaded.n_kf}, n_pt {n_map[1]} -> {loaded.n_pt})")
+        del loaded
+
+        # ---- 11.5 the driver's loop over host frames, through track_rgbd
+        host = [(i / fps, img.cpu().numpy(), depth.cpu().numpy())
+                for i, (img, depth) in enumerate(frames)]
+        driven = SlamSystem(cfg, device="cuda")
+        times = track_frames(driven, host, progress=False)
+        if len(driven.tracked_logs()) != len(host):
+            raise AssertionError(f"io: the driver tracked {len(driven.tracked_logs())} of "
+                                 f"{len(host)} host frames")
+        files = {name: os.path.join(tmp, name)
+                 for name in ("traj.txt", "traj.kitti.txt", "kf.txt", "gt.txt")}
+        driven.export_trajectory_tum(files["traj.txt"])
+        driven.export_trajectory_kitti(files["traj.kitti.txt"])
+        driven.export_keyframe_trajectory_tum(files["kf.txt"])
+        # the rendered poses in the first camera's frame, as a TUM file
+        _write_tum(files["gt.txt"], [(i / fps, T @ np.linalg.inv(poses[0]))
+                                     for i, T in enumerate(poses)])
+        lines = {name: len(open(f).read().splitlines()) for name, f in files.items()}
+        if lines != {"traj.txt": len(host), "traj.kitti.txt": len(host),
+                     "kf.txt": int(driven.map.kf_valid.sum()), "gt.txt": len(host)}:
+            raise AssertionError(f"io: exported lines {lines}")
+        here = os.path.dirname(os.path.abspath(__file__))
+        ev = subprocess.run([sys.executable, os.path.join(here, "scripts", "evaluate.py"),
+                             "--est", files["traj.txt"], "--gt", files["gt.txt"], "--json"],
+                            capture_output=True, text=True, timeout=120, check=True)
+        ate = json.loads(ev.stdout.strip().splitlines()[-1])
+        if not (ate["poses"] == len(host) and ate["ate_rmse_m"] < ATE_BOUND_M):
+            raise AssertionError(f"io: scripts/evaluate.py gives {ate}, bound {ATE_BOUND_M} m")
+        host_ms = np.asarray(times[2:]) * 1e3
+        print(f"io, driver loop (track_frames over host frames, track_rgbd): "
+              f"{len(driven.tracked_logs())}/{len(host)} tracked, n_kf {driven.n_kf}, n_pt "
+              f"{driven.n_pt}; exports {lines}; scripts/evaluate.py ATE "
+              f"{ate['ate_rmse_m']:.6f} m (bound {ATE_BOUND_M:.6f} m), RPE {ate['rpe_rmse_m']}; "
+              f"median frame {np.median(host_ms):.2f} ms over frames 2-{len(host) - 1} against "
+              f"phase 4's device-entry {device_median_ms:.2f} ms (host clock with synchronize; "
+              f"{card})")
+        del driven
+
+    # ---- 11.6 one pass of the port's bench
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = bench.main(passes=1)
+    line = buf.getvalue().strip().splitlines()[-1]
+    if json.loads(line) != result or result["device"] != card:
+        raise AssertionError(f"io: the bench printed {line!r}")
+    print(f"io, bench (python -m refactored_orb_slam2_tpu_torch.bench, one pass): {line}")
+    print(f"io: phase 11 took {time.perf_counter() - t_phase:.1f} s (host clock; {card})")
+    return dict(cuda_hamming.launches)
+
+
 def _kernels(card: str) -> list:
     """Phases 2 and 3: build both kernels, hold each against its plain
     version, time it; returns the rows of the kernel JSON line (without
@@ -1444,6 +1644,24 @@ def _kernels(card: str) -> list:
     }, **m["fuse"], other_shapes=[m[k] for k in m if k != "fuse"])]
 
 
+def _launch_rows(kernels: list, by_path: dict, reloc: list) -> None:
+    """Each kernel row's launches per path and in all, and phase 9's
+    rescue-search comparisons in its error; raises if a kernel was not
+    launched on a path that must launch it."""
+    # localization-only mode freezes the map, so it has no masked search; a
+    # relocalization needs one only for a rescue round or a new keyframe
+    exempt = {("localization", "hamming_best2"), ("relocalization", "hamming_best2")}
+    for row in kernels:
+        row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
+        if row["name"] == "hamming_best2":     # phase 9's rescue-search comparisons
+            row["max_abs_err"] = max([row["max_abs_err"]] + [r["err"] for r in reloc])
+        idle = [path for path, n in row["launches_by_path"].items()
+                if n == 0 and (path, row["name"]) not in exempt]
+        if idle:
+            raise AssertionError(f"{row['name']} was not launched on the paths {idle}")
+
+
 def main(mode: str = "") -> None:
     # ---- 1. device
     if not torch.cuda.is_available():
@@ -1488,6 +1706,12 @@ def main(mode: str = "") -> None:
     frames = rendered(cfg)
     slam, r = _sequence(cfg, frames, poses, ATE_BOUND_M, card)
     by_path["rgbd"] = r["launches"]
+    if mode == "--io-only":
+        by_path["io"] = _io(slam, frames, poses, r["median_ms"], card)
+        _launch_rows(kernels, by_path, [])
+        print(json.dumps({"kernels": kernels}))
+        print(card)
+        return
 
     # ---- 5. where the time goes
     slam2 = SlamSystem(cfg, device="cuda")
@@ -1503,6 +1727,10 @@ def main(mode: str = "") -> None:
     reloc.append(_relocalization(slam, frames, poses, "localization",
                                  N_FRAMES + N_LOCALIZATION + 6, card))
     slam.deactivate_localization_mode()
+
+    # ---- 11. I/O and the drivers: that system's map saved and loaded, the
+    # dataset driver's loop, the bench
+    by_path["io"] = _io(slam, frames, poses, r["median_ms"], card)
     del slam, frames
 
     # ---- 7 and 8. the stereo and the monocular sequence, each with phase 9
@@ -1525,18 +1753,7 @@ def main(mode: str = "") -> None:
     by_path["relocalization"] = {name: sum(r["launches"][name] for r in reloc)
                                  for name in by_path["rgbd"]}
 
-    # localization-only mode freezes the map, so it has no masked search; a
-    # relocalization needs one only for a rescue round or a new keyframe
-    exempt = {("localization", "hamming_best2"), ("relocalization", "hamming_best2")}
-    for row in kernels:
-        row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()}
-        row["launches"] = sum(row["launches_by_path"].values())
-        if row["name"] == "hamming_best2":     # phase 9's rescue-search comparisons
-            row["max_abs_err"] = max([row["max_abs_err"]] + [r["err"] for r in reloc])
-        idle = [path for path, n in row["launches_by_path"].items()
-                if n == 0 and (path, row["name"]) not in exempt]
-        if idle:
-            raise AssertionError(f"{row['name']} was not launched on the paths {idle}")
+    _launch_rows(kernels, by_path, reloc)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1547,8 +1764,9 @@ def main(mode: str = "") -> None:
 if __name__ == "__main__":
     # --kernels-only stops after phase 3: the kernel JSON line (launches
     # null) and the card, without the device line of a whole run;
-    # --circuit-only runs phases 1-3 and 10 and prints the same two lines
-    if sys.argv[1:] not in ([], ["--kernels-only"], ["--circuit-only"]):
-        _fail("usage: python3 chip_smoke.py [--kernels-only | --circuit-only] "
+    # --circuit-only runs phases 1-3 and 10, --io-only phases 1-4 and 11,
+    # and each prints the same two lines
+    if sys.argv[1:] not in ([], ["--kernels-only"], ["--circuit-only"], ["--io-only"]):
+        _fail("usage: python3 chip_smoke.py [--kernels-only | --circuit-only | --io-only] "
               f"(got {sys.argv[1:]})")
     main(sys.argv[1] if sys.argv[1:] else "")

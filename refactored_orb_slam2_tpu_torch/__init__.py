@@ -13,9 +13,14 @@ Today it runs RGB-D, stereo and monocular tracking with keyframe insertion
 and synchronous local mapping, relocalization (``place/`` for the
 vocabulary and the KeyFrameDB, ``solvers/epnp.py``) and localization-only
 mode (``system.SlamSystem.track_rgbd`` / ``track_stereo`` / ``track_monocular``),
-with two hand-written CUDA kernels: the fused window matcher and the masked
-best-2 matcher (``ops/cuda_hamming.py`` over ``csrc/window_match.cu`` and
-``csrc/masked_best2.cu``).
+loop closing, map checkpoints in the JAX package's file format
+(``io/checkpoint.py``), the dataset readers (``io/datasets.py``) and the
+figures (``io/viz.py``), with two hand-written CUDA kernels: the fused
+window matcher and the masked best-2 matcher (``ops/cuda_hamming.py`` over
+``csrc/window_match.cu`` and ``csrc/masked_best2.cu``).  Its command-line
+programs run with ``python -m``: the dataset driver
+(``refactored_orb_slam2_tpu_torch.scripts.run_dataset``) and the bench
+(``refactored_orb_slam2_tpu_torch.bench``).
 """
 
 __version__ = "0.1.0"

@@ -1,8 +1,9 @@
 """The port's own copies of the JAX package's JAX-free modules stay equal to
 the originals: the config tree (classes, fields, defaults, the settings
-loader), the per-dataset presets, the rBRIEF pattern table and the telemetry
-counters.  Exact
-equality throughout: these are settings and data, not arithmetic.
+loader), the per-dataset presets, the rBRIEF pattern table, the telemetry
+counters and the dataset readers (``io/datasets.py``, code below the
+module docstring).  Exact equality throughout: these are settings, data
+and host code, not arithmetic.
 """
 
 import dataclasses
@@ -211,3 +212,24 @@ def test_vocabulary_asset_copy_equal():
     vocab = load_vocabulary(VOCAB_ASSET)
     np.testing.assert_array_equal(vocab.words.numpy().view(np.uint32), j["words"])
     np.testing.assert_array_equal(vocab.idf.numpy(), j["idf"])
+
+
+def test_dataset_readers_copy_equal():
+    """``io/datasets.py`` is the original's code word for word: the module
+    without its docstring parses to the same tree."""
+    import ast
+    import inspect
+
+    from refactored_orb_slam2_tpu.io import datasets as j_datasets
+    from refactored_orb_slam2_tpu_torch.io import datasets as t_datasets
+
+    def body(module):
+        tree = ast.parse(inspect.getsource(module))
+        assert isinstance(tree.body[0].value, ast.Constant)       # the docstring
+        tree.body = tree.body[1:]
+        return ast.dump(tree)
+
+    assert t_datasets is not j_datasets
+    assert body(t_datasets) == body(j_datasets)
+    assert [n for n in dir(t_datasets) if not n.startswith("__")] == \
+        [n for n in dir(j_datasets) if not n.startswith("__")]

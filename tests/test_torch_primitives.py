@@ -216,14 +216,17 @@ def test_window_and_octave_band_masks_match_jax():
 # ---------------------------------------------------------------- imports
 def test_port_imports_no_jax():
     """Every module of the port imports in a fresh interpreter without
-    pulling in jax or any module of the JAX package."""
+    pulling in jax or any module of the JAX package, nor cv2 or matplotlib
+    (the card's machine has neither: the dataset readers and the figures
+    import them inside their functions)."""
     import refactored_orb_slam2_tpu_torch as pkg
 
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
     for module in ("system", "solvers.initializer", "utils.presets", "ops.stereo",
                    "geometry.triangulation", "place.vocab", "place.keyframe_db",
                    "solvers.epnp", "geometry.sim3", "solvers.horn_sim3", "optim.pose_graph",
-                   "backend.loop_closing"):
+                   "backend.loop_closing", "io.checkpoint", "io.datasets", "io.viz",
+                   "scripts.run_dataset", "bench"):
         assert f"refactored_orb_slam2_tpu_torch.{module}" in names
     code = (
         "import importlib, sys\n"
@@ -232,6 +235,8 @@ def test_port_imports_no_jax():
         "ref = sorted(m for m in sys.modules if m == 'refactored_orb_slam2_tpu'"
         " or m.startswith('refactored_orb_slam2_tpu.'))\n"
         "assert not ref, ref\n"
+        "late = sorted(m for m in ('cv2', 'matplotlib') if m in sys.modules)\n"
+        "assert not late, late\n"
         "print('ok', len(sys.modules))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
