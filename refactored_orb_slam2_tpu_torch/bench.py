@@ -20,16 +20,19 @@ the card before timing, so the frames enter through
 pre-roll over a faster orbit (seed 7, span 0.9*pi) runs every tracking and
 mapping step once before ``reset()``.
 
-Mapping is synchronous: the async, pipelined and cooperative modes of the
-JAX bench are not ported yet (ROADMAP.md queue 1 item 12), so a keyframe's
-mapping runs inside its frame, as the reference's single-threaded mode
-would.  Mapping time is taken around ``_mapping_steps`` with the device
-synchronized.  Before timing, each CUDA kernel is held once against its
-plain version at the path's shapes.  Each pass tracks the 160 frames on a
-fresh map and asserts 0 lost, 4 <= n_kf <= 64 and mapping drained; the
-frames after frame 19 are timed (host clock, device synchronized after
-each frame).
-The headline is the median of the per-pass medians, with their spread.
+The system runs in the JAX bench's mode (``BENCH_MODE``, bench.py:66-67):
+each tracked frame is one CUDA graph replay, dispatched optimistically
+three frames ahead of its commit (pipelined, depth 3), and local mapping
+advances as bounded steps pumped between the frame dispatches on the
+tracking thread (cooperative).  Mapping time is the host clock around
+``_pump_mapping``, as the JAX bench takes it.  Before timing, each CUDA
+kernel is held once against its plain version at the path's shapes.  Each
+pass tracks the 160 frames on a fresh map and asserts 0 lost, 4 <= n_kf <=
+64 and mapping drained; the frames after frame 19 are timed on the host
+clock, each call as the caller waits for it (a pipelined call returns once
+its frame is dispatched and the frame three back committed; the final
+flush counts to the last frame).  The headline is the median of the
+per-pass medians, with their spread.
 
 Prints ONE JSON line (the JAX bench's keys, plus ``device``: the card's name
 and power limit from nvidia-smi).  Baseline: the reference runs at the
@@ -49,6 +52,8 @@ import torch
 
 N_FRAMES = 160
 WARM_UP = 19          # frames up to this one are not timed (cadence settling)
+#: the JAX bench's SlamSystem mode (bench.py:66-67)
+BENCH_MODE = dict(cooperative_mapping=True, pipelined=True, pipeline_depth=3)
 
 
 def bench_config():
@@ -128,17 +133,16 @@ def kernel_selfcheck(cfg, device="cuda") -> None:
 def run_pass(slam, frames, tag, map_acc: dict) -> tuple[float, float]:
     """One timed pass over ``frames`` ((image, depth) in the wire encoding
     on the system's device) on a fresh map; returns the median and mean
-    time in seconds of the frames after the warm-up boundary.  Raises if a
-    frame was lost, the keyframe count is implausible or mapping did not
-    drain."""
+    time in seconds of the frames after the warm-up boundary, each call as
+    its caller waits for it (a pipelined call waits for the commit of the
+    frame ``pipeline_depth`` back, not for its own).  Raises if a frame was
+    lost, the keyframe count is implausible or mapping did not drain."""
     slam.reset()
     map_acc["t"] = 0.0
-    sync = torch.cuda.synchronize if slam.device.type == "cuda" else (lambda: None)
     times, n_lost, n_kf0, warm_start = [], 0, 0, 0
     for i, (img, depth) in enumerate(frames):
         t0 = time.perf_counter()
         pose = slam.track_rgbd_device(img, depth, i / 30.0)
-        sync()
         times.append(time.perf_counter() - t0)
         if pose is None:
             n_lost += 1
@@ -146,10 +150,14 @@ def run_pass(slam, frames, tag, map_acc: dict) -> tuple[float, float]:
             warm_start = len(times)
             n_kf0 = slam.n_kf
             map_acc["t"] = 0.0
+    t0 = time.perf_counter()
     slam.flush_pipeline()
+    times[-1] += time.perf_counter() - t0
     n_kf_end = slam.n_kf
     if not slam.wait_mapping_idle(timeout=60):
         raise RuntimeError(f"pass {tag}: mapping failed to drain")
+    # a pipelined frame can be lost at its commit, after its call returned
+    n_lost += sum(log.lost for log in slam.trajectory)
     if n_lost:
         raise RuntimeError(f"pass {tag}: tracking lost {n_lost} frames")
     if not 4 <= n_kf_end <= 64:
@@ -178,7 +186,7 @@ def summarize(results, device: str) -> dict:
         "unit": f"frames/s median (median of {len(results)} "
                 f"pass{'es' if len(results) != 1 else ''}), full "
                 "SlamSystem tracking (640x480 RGB-D, 1000 feats, 64k-point map, "
-                "device-resident frames, synchronous mapping, no pipelining)",
+                "device-resident frames, pipeline depth 3, cooperative mapping)",
         "vs_baseline": round(fps / 30.0, 3),
         "median_ms": round(med * 1e3, 2),
         "mean_ms": round(mean * 1e3, 2),
@@ -197,7 +205,7 @@ def main(passes: int = 3) -> dict:
 
     device = card()
     cfg = bench_config()
-    slam = SlamSystem(cfg, device="cuda")
+    slam = SlamSystem(cfg, device="cuda", **BENCH_MODE)
     kernel_selfcheck(cfg)
 
     world = W.scene_room(seed=11)
@@ -209,7 +217,8 @@ def main(passes: int = 3) -> dict:
     torch.cuda.synchronize()
 
     # pre-roll: a faster orbit (denser keyframes) runs every tracking and
-    # mapping step once before the timed passes
+    # mapping step once (and captures the frame's CUDA graph) before the
+    # timed passes
     print("rendered; pre-roll...", file=sys.stderr, flush=True)
     for i, T in enumerate(W.traj_room_orbit(30, seed=7, span=0.9 * np.pi)):
         img, depth = world.render_device(T, slam.cam, want_depth=True, noise=2.0, rng=rng,
@@ -219,18 +228,17 @@ def main(passes: int = 3) -> dict:
     slam.reset()
     print("pre-roll done; tracking...", file=sys.stderr, flush=True)
 
-    # mapping runs inside the frame that inserts a keyframe
+    # mapping runs where it is pumped, between frame dispatches (host clock,
+    # as the JAX bench takes it)
     map_acc = {"t": 0.0}
-    steps = slam._mapping_steps
+    pump = slam._pump_mapping
 
-    def timed_steps(kf_slot):
-        torch.cuda.synchronize()
+    def timed_pump(budget=1):
         t0 = time.perf_counter()
-        steps(kf_slot)
-        torch.cuda.synchronize()
+        pump(budget)
         map_acc["t"] += time.perf_counter() - t0
 
-    slam._mapping_steps = timed_steps
+    slam._pump_mapping = timed_pump
     results = [run_pass(slam, frames, k + 1, map_acc) for k in range(passes)]
     out = summarize(results, device)
     print(f"median-of-{passes}: {out['median_ms']:.2f}ms (spread "

@@ -101,6 +101,13 @@ def scale_table(values: tuple, device: torch.device) -> torch.Tensor:
     return torch.tensor(values, dtype=torch.float32).to(device)
 
 
+@functools.lru_cache(maxsize=None)
+def index_table(values: tuple, device: torch.device) -> torch.Tensor:
+    """A small constant int64 table (per-level row offsets) on ``device``,
+    built once per device, as ``scale_table``."""
+    return torch.tensor(values, dtype=torch.int64).to(device)
+
+
 def level_sigma2(n_levels: int, scale_factor: float) -> np.ndarray:
     """Per-octave variance (mvLevelSigma2), the optimizers' information."""
     return scale_factors(n_levels, scale_factor) ** 2

@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from . import matching as M
-from .image import scale_table
+from .image import index_table, scale_table
 
 SAD_W = 5          # half window (11x11), Frame.cc:560
 SAD_L = 5          # slide range +/-5, Frame.cc:567
@@ -76,7 +76,7 @@ def stereo_match(
     n = left.xy.shape[0]
     dev = left.xy.device
     sf = scale_table(tuple(float(v) for v in scale_factors), dev)
-    offs = torch.from_numpy(np.asarray(level_offsets, np.int64)).to(dev)
+    offs = index_table(tuple(int(v) for v in level_offsets), dev)
 
     # --- 1. Hamming matching under row/disparity/octave gates -------------
     vL = left.xy[:, 1:2]

@@ -17,10 +17,11 @@ Calibration comes from --preset (auto-chosen per mode: TUM variant from
 --variant, KITTI group from the sequence number in --data) or from a
 reference-format --settings YAML.  The system runs on the GPU; --cpu runs
 it on the CPU instead (there is no fallback from one to the other).
-Reading PNG sequences needs cv2, and --overlay-every matplotlib.  The
-async, pipelined and cooperative modes (--async-mapping, --pipelined,
---coop, --depth above 1) are not ported yet: the program exits non-zero
-with the system's message.
+Reading PNG sequences needs cv2, and --overlay-every matplotlib.  --coop
+runs cooperative mapping with pipelined dispatch at --depth, --pipelined
+pipelined dispatch at depth 1 (the JAX driver's flags); the async mode
+(--async-mapping) is not ported yet: the program exits non-zero with the
+system's message.
 """
 
 from __future__ import annotations
@@ -154,12 +155,15 @@ def main(argv=None):
                          "(not ported yet: exits non-zero)")
     ap.add_argument("--coop", action="store_true",
                     help="cooperative mapping: bounded mapping steps pumped "
-                         "between frame dispatches (not ported yet: exits non-zero)")
+                         "between frame dispatches, with pipelined dispatch "
+                         "at --depth (see SlamSystem._mapping_steps)")
     ap.add_argument("--depth", type=int, default=1,
-                    help="pipeline depth (1 = commit each frame before the "
-                         "next; above 1 is not ported yet: exits non-zero)")
+                    help="pipeline depth with --coop (1 = commit each frame "
+                         "before the next dispatch, sync-identical gates; "
+                         "3 = deepest overlap, keyframe decisions land late)")
     ap.add_argument("--pipelined", action="store_true",
-                    help="optimistic lag-1 dispatch (not ported yet: exits non-zero)")
+                    help="optimistic lag-1 dispatch: per-frame gates resolve "
+                         "one frame late")
     ap.add_argument("--localization-after", type=int, default=0,
                     help="switch to localization-only mode (no mapping) after "
                          "N frames (0 = never; viewer menu toggle in the "
@@ -182,7 +186,7 @@ def main(argv=None):
     try:
         slam = SlamSystem(cfg, device=device, async_mapping=args.async_mapping,
                           pipelined=args.pipelined or args.coop,
-                          pipeline_depth=args.depth,
+                          pipeline_depth=args.depth if args.coop else 1,
                           cooperative_mapping=args.coop)
     except NotImplementedError as e:
         sys.exit(f"run_dataset: {e}")

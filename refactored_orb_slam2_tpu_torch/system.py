@@ -1,6 +1,6 @@
-"""SLAM system facade: RGB-D, stereo and monocular tracking with synchronous
-local mapping, relocalization and localization-only mode (port of
-system.py).
+"""SLAM system facade: RGB-D, stereo and monocular tracking with local
+mapping (synchronous, or cooperative and pipelined), relocalization,
+localization-only mode and loop closing (port of system.py).
 
 What runs here, in the JAX package's order:
 
@@ -15,10 +15,16 @@ What runs here, in the JAX package's order:
 - every tracked frame: ``_fused_step`` (the JAX ``_build_fused_track.step``:
   frame build, motion-model match with the 2x window retry, pose-only LM,
   local-map selection and the fused window matcher (CUDA kernel), a second
-  pose-only LM, the counters and ``Tcr``), then ``_commit_fused``.  When
-  the motion model fails, TrackReferenceKeyFrame and the decomposed local
-  map take over; when that fails too, or too few local-map inliers remain,
-  the frame is lost;
+  pose-only LM, the counters and ``Tcr``), on the card one CUDA graph replay
+  (``frontend/fused_graph.py``, the counterpart of ``_jit_fused_track``),
+  then ``_commit_fused``.  When the motion model fails,
+  TrackReferenceKeyFrame and the decomposed local map take over; when that
+  fails too, or too few local-map inliers remain, the frame is lost;
+- ``pipelined=True``: ``_track_pipelined`` dispatches each frame against the
+  tracker's uncommitted device state and commits it ``pipeline_depth``
+  calls later (``track_*`` then returns the pose as a device tensor); a
+  frame lost at its commit sends the frames in flight behind it through the
+  decomposed path (``flush_pipeline``);
 - a lost system with at most 5 keyframes resets and initializes again on a
   later frame (Tracking.cc:421-428); with more, or with the map frozen, every
   later frame tries ``_relocalize`` (Tracking.cc:1217-1363): BoW candidates
@@ -28,12 +34,17 @@ What runs here, in the JAX package's order:
   goes straight to the local map, leaves no velocity, and for
   ``max_frames_between_kf`` frames the local map must give
   ``min_inliers_local_map_reloc`` inliers;
-- a keyframe (``_need_new_keyframe``, ``_create_keyframe``) runs local
-  mapping to completion before the next frame (``_mapping_steps``: work
-  sets, triangulation, fusion in both directions, recent-point culling and
-  statistics, the dense local BA, keyframe culling), both descriptor
-  searches through the masked best-2 CUDA kernel.  A monocular keyframe
-  gets no depth points: triangulation is its only source of new points;
+- a keyframe (``_need_new_keyframe``, ``_create_keyframe``) is mapped by
+  ``_mapping_steps``, a step generator: work sets, triangulation, fusion in
+  both directions, recent-point culling and statistics, the local BA in
+  chunks of 5 LM iterations, keyframe culling, both descriptor searches
+  through the masked best-2 CUDA kernel.  Synchronous and pipelined mode
+  run it to completion before the next frame; ``cooperative_mapping=True``
+  queues the keyframe and pumps one step per tracked frame
+  (``_pump_mapping``), and a keyframe needed while mapping is busy aborts
+  the local BA and goes in while fewer than 3 are queued.  A monocular
+  keyframe gets no depth points: triangulation is its only source of new
+  points;
 - localization-only mode (``activate_localization_mode``): the map is
   frozen, no keyframe is inserted, and every frame takes the decomposed
   path ``_track``, which for RGB-D and stereo adds temporal points from the
@@ -49,12 +60,12 @@ What runs here, in the JAX package's order:
   correction) and the global BA (``_launch_gba``, run inline);
 - the trajectory products, chained through culled keyframes.
 
-The async, pipelined and cooperative modes (ROADMAP.md queue 1 item 12)
-raise ``NotImplementedError``; the facade's pipeline and shutdown calls
-have nothing to wait for in synchronous mode.  A tracked frame of the fused
+The async mode (a mapping thread and the global-BA thread, ROADMAP.md queue
+1 item 12b) raises ``NotImplementedError``.  A tracked frame of the fused
 path reads one (6,) scalar vector and one (2, 4, 4) pose stack back to the
-host, as the JAX facade does; a keyframe, a localization-only frame, a
-relocalization and a loop closure add the reads listed in PERF.md.
+host, through pinned memory, as the JAX facade does; a keyframe, a
+localization-only frame, a relocalization and a loop closure add the reads
+listed in PERF.md.
 """
 
 from __future__ import annotations
@@ -69,6 +80,7 @@ import torch
 from .backend import local_mapping as LM
 from .backend import loop_closing as LC
 from .frontend import tracking_kernels as TK
+from .frontend.fused_graph import FusedGraph
 from .frontend.frame import (
     FrameData, build_frame_mono, build_frame_rgbd, build_frame_stereo,
 )
@@ -138,6 +150,24 @@ def _write_tum(path: str, rows) -> None:
                     f"{q[0]:.7f} {q[1]:.7f} {q[2]:.7f} {q[3]:.7f}\n")
 
 
+def _start_read(t: torch.Tensor):
+    """Start copying ``t`` to the host: on the card into pinned memory,
+    with an event after the copy; ``_finish_read`` waits for it."""
+    if t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def _finish_read(pending) -> np.ndarray:
+    host, done = pending
+    if done is not None:
+        done.synchronize()
+    return host.numpy().copy()
+
+
 @dataclasses.dataclass
 class FrameLog:
     frame_id: int
@@ -165,11 +195,13 @@ class SlamSystem:
         # cuDNN and matmuls may use TF32, which keeps ~3 decimal digits.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        if async_mapping or pipelined or cooperative_mapping or pipeline_depth > 1:
+        if cooperative_mapping and async_mapping:
+            raise ValueError("cooperative_mapping and async_mapping are exclusive")
+        if async_mapping:
             raise NotImplementedError(
-                "async, pipelined (pipeline_depth > 1) and cooperative modes "
-                "arrive with ROADMAP.md queue 1 item 12; the port runs the "
-                "synchronous mode"
+                "the async mode (a mapping thread and the global-BA thread) "
+                "arrives with ROADMAP.md queue 1 item 12b; the port runs the "
+                "synchronous, pipelined and cooperative modes"
             )
         if config.sensor not in SENSORS:
             raise ValueError(f"sensor {config.sensor!r}: expected one of {SENSORS}")
@@ -196,11 +228,27 @@ class SlamSystem:
             np.float32,
         )
         self.loop_closing_enabled = True
-        # synchronous mode: mapping runs on the tracking thread, there is no
-        # mapper to wait for and no frame in flight
+        # optimistic dispatch: track_* returns the pose as a device tensor
+        # and resolves the frame's gates ``pipeline_depth`` calls later.
+        # Depth 1 commits the previous frame before each dispatch, as
+        # synchronous mode does; a deeper pipeline lets keyframe decisions
+        # land up to depth - 1 frames late (the JAX package measured its ATE
+        # 0.104 m at depth 3 against 0.0027 m at depth 1 on its fixture).
+        self.pipelined = pipelined
+        self.pipeline_depth = max(1, int(pipeline_depth))
+        # cooperative mapping: local mapping advances as a step generator
+        # pumped between frame dispatches on the tracking thread
+        self.cooperative = cooperative_mapping
+        # mapping runs on the tracking thread in every ported mode: there is
+        # no mapper thread to wait for
         self.mapper = None
-        # which tracking paths fired; a global BA is never aborted in
-        # synchronous mode
+        # the tracked frame as one CUDA graph, captured at the first fused
+        # frame on the card and kept across reset() (the shapes stay)
+        self._graph: Optional[FusedGraph] = None
+        self._eye4 = torch.eye(4, dtype=torch.float32, device=self.device)
+        self._scalars: dict = {}
+        # which tracking paths fired; a global BA is never aborted (it runs
+        # inline in every ported mode)
         self.stats = {"motion_tracks": 0, "ref_kf_tracks": 0, "vo_tracks": 0,
                       "relocs": 0, "reloc_rejects": 0, "gba_runs": 0, "gba_aborted": 0}
         # what each candidate of the last _relocalize call gave (see there)
@@ -238,29 +286,39 @@ class SlamSystem:
         # localization-only visual-odometry flag (mbVO, Tracking.cc:131)
         self.mb_vo = False
         self.loop_state = LC.LoopState()
+        # frames dispatched and not yet committed (pipelined mode)
+        self._inflight: list[dict] = []
+        # keyframes waiting for cooperative mapping, and the running one
+        self._coop_pending: list[int] = []
+        self._coop_gen = None
+        # mbAbortBA (LocalMapping.cc:70-78): the tracker sets it, the local
+        # BA's chunks poll it
+        self.abort_ba = False
+        # a keyframe the tracker re-anchors on at its next frame (a global
+        # BA merged while frames were in flight)
+        self._pending_pose_jump: Optional[int] = None
 
     def activate_localization_mode(self):
         """Track against the frozen map without inserting keyframes
-        (System::ActivateLocalizationMode, System.cc:311-319).  Mapping is
-        synchronous, so nothing is in flight to wait for."""
+        (System::ActivateLocalizationMode, System.cc:311-319), once the
+        frames in flight are committed and mapping has drained."""
+        self.flush_pipeline()
+        self._drain_mapping()
         self.localization_only = True
 
     def deactivate_localization_mode(self):
         self.localization_only = False
 
-    # Synchronous forms of the facade's pipeline calls: mapping and loop
-    # closing finish inside the track_* call that inserts a keyframe, so
-    # nothing is ever queued or in flight.
-    def flush_pipeline(self):
-        """Resolve in-flight pipelined frames: there are none."""
-
     def shutdown(self):
-        """Drain mapping (System::Shutdown, System.cc:336-353): nothing is
-        queued."""
+        """Drain the mapping pipeline (System::Shutdown, System.cc:336-353)."""
+        self.flush_pipeline()
+        self._drain_mapping()
 
     def wait_mapping_idle(self, timeout: float = 60.0) -> bool:
-        """Mapping is idle whenever a track_* call has returned."""
-        return True
+        """Run cooperative mapping until every queued keyframe is mapped;
+        True when none is left (there is no mapper thread to time out)."""
+        self._drain_mapping()
+        return not self._coop_busy()
 
     # ------------------------------------------------------------- tracking
     def _to_device(self, host: np.ndarray) -> torch.Tensor:
@@ -296,8 +354,17 @@ class SlamSystem:
 
     def _track_entry(self, raw_a, raw_b, timestamp: float):
         self.frame_id += 1
+        if self._pending_pose_jump is not None:
+            # a global BA merged while frames were in flight: re-anchor
+            self.last_pose = self.map.kf_pose[self._pending_pose_jump]
+            self.velocity = None
+            self._pending_pose_jump = None
         if self.state == TrackState.OK and not self.localization_only:
+            # the steady state: the whole per-frame path is one fused step
+            if self.pipelined:
+                return self._track_pipelined(raw_a, raw_b, timestamp)
             return self._track_fused(raw_a, raw_b, timestamp)
+        self.flush_pipeline()
         # initialization, a frame after a loss and localization-only frames
         # run the decomposed steps
         return self._track(self._build_frame(raw_a, raw_b), timestamp)
@@ -422,23 +489,29 @@ class SlamSystem:
         self._log_frame(timestamp, lost=False)
         return pose.cpu().numpy()
 
-    def _fused_step(self, raw_a, raw_b):
+    def _fused_step(self, raw_a, raw_b, last_pt, last_octave, last_angle, last_pose,
+                    velocity, have_vel, ref_kf, min_obs, kf_pose, kf_point_idx,
+                    kf_feat_valid, pt_pos, pt_valid, pt_desc, pt_normal, pt_min_dist,
+                    pt_max_dist, pt_visible, pt_found, pt_obs_kf):
         """The whole per-frame OK-state path as device work with no host
-        read (the JAX ``_build_fused_track.step``)."""
-        cam, cfg, m = self.cam, self.cfg, self.map
+        read (the JAX ``_build_fused_track.step``).  It reads tensors only:
+        the velocity is the identity where ``have_vel`` is false, and the
+        reference keyframe and the observation bar are device int32, so
+        that one CUDA graph of it serves every frame
+        (``frontend/fused_graph.py``).  Returns (frame, [Tcw, Tcr], map
+        point per feature, the local map's points, the visibility and found
+        counters after this frame, the (6,) int32 scalars)."""
+        cam, cfg = self.cam, self.cfg
         n_levels = cfg.orb.n_levels
-        P = m.pt_pos.shape[0]
+        P = pt_pos.shape[0]
         th = self._motion_window
         frame = self._build_frame(raw_a, raw_b)
-        last = self.last_frame
-        pose0 = (self.velocity @ self.last_pose if self.velocity is not None
-                 else self.last_pose)
+        pose0 = torch.where(have_vel, velocity @ last_pose, last_pose)
 
         def motion(win):
             return TK.match_motion_model(
-                cam, pose0, frame, self.last_pt_idx, last.octave,
-                m.pt_pos, m.pt_valid, m.pt_desc, last.angle,
-                th=win, scale_factors=self.scale_factors, nn_max_dist=75,
+                cam, pose0, frame, last_pt, last_octave, pt_pos, pt_valid, pt_desc,
+                last_angle, th=win, scale_factors=self.scale_factors, nn_max_dist=75,
             )
 
         # 2x window retry when fewer than 20 matches (Tracking.cc:802).  The
@@ -453,29 +526,27 @@ class SlamSystem:
         )
         inv_s2 = self.inv_sigma2_table[torch.clamp(frame.octave, 0, n_levels - 1).long()]
         is_st = frame.uvr[:, 2] >= 0
-        seed1 = pose0 if cfg.tracking.seed_pose_opt_from_prediction else self.last_pose
-        o1 = optimize_pose(cam, seed1, m.pt_pos[torch.clamp(r.pt_idx, min=0).long()],
+        seed1 = pose0 if cfg.tracking.seed_pose_opt_from_prediction else last_pose
+        o1 = optimize_pose(cam, seed1, pt_pos[torch.clamp(r.pt_idx, min=0).long()],
                            frame.uvr, inv_s2, r.pt_idx >= 0, is_st)
         pt1 = torch.where(o1.inlier, r.pt_idx, -1)
 
         # local map (TrackLocalMap)
-        already = map_ops.set_rows(torch.zeros(P, dtype=torch.bool, device=self.device),
+        already = map_ops.set_rows(torch.zeros(P, dtype=torch.bool, device=pt_pos.device),
                                    torch.where(pt1 >= 0, pt1, P), True)
         local = TK.select_local_points(
-            cam, o1.Tcw, m.pt_pos, m.pt_valid, m.pt_normal,
-            m.pt_min_dist, m.pt_max_dist, already,
+            cam, o1.Tcw, pt_pos, pt_valid, pt_normal, pt_min_dist, pt_max_dist, already,
             budget=4096, scale_factor=cfg.orb.scale_factor, n_levels=n_levels,
         )
-        r2 = TK.match_local_points(frame, local, m.pt_desc, pt1, th=1.0,
+        r2 = TK.match_local_points(frame, local, pt_desc, pt1, th=1.0,
                                    scale_factors=self.scale_factors)
-        o2 = optimize_pose(cam, o1.Tcw, m.pt_pos[torch.clamp(r2.pt_idx, min=0).long()],
+        o2 = optimize_pose(cam, o1.Tcw, pt_pos[torch.clamp(r2.pt_idx, min=0).long()],
                            frame.uvr, inv_s2, r2.pt_idx >= 0, is_st)
         pt2 = torch.where(o2.inlier, r2.pt_idx, -1)
 
         # visibility / found statistics (sync-mode map update)
-        new_visible = map_ops.add_rows(m.pt_visible,
-                                       torch.where(local.idx >= 0, local.idx, P), 1)
-        new_found = map_ops.add_rows(m.pt_found, torch.where(pt2 >= 0, pt2, P), 1)
+        new_visible = map_ops.add_rows(pt_visible, torch.where(local.idx >= 0, local.idx, P), 1)
+        new_found = map_ops.add_rows(pt_found, torch.where(pt2 >= 0, pt2, P), 1)
 
         # NeedNewKeyFrame close counts (Tracking.cc:911-927)
         close = (frame.depth > 0) & (frame.depth < self.th_depth_m) & frame.valid
@@ -484,46 +555,108 @@ class SlamSystem:
 
         # nRefMatches: the reference keyframe's landmarks with >= min_obs
         # observations (Tracking.cc:897-899); obs slots of culled keyframes
-        # are cleared, so pt_obs_kf >= 0 alone is the validity test
-        min_obs = 3 if self.n_kf > 2 else 2
-        n_obs = (m.pt_obs_kf >= 0).sum(dim=1, dtype=torch.int32)
-        ref_pt = m.kf_point_idx[self.ref_kf]
+        # are cleared, so pt_obs_kf >= 0 alone is the validity test.  The
+        # reference keyframe's rows come by index_select of the device index.
+        ref = ref_kf.reshape(1).long()
+        n_obs = (pt_obs_kf >= 0).sum(dim=1, dtype=torch.int32)
+        ref_pt = kf_point_idx.index_select(0, ref)[0]
         rp = torch.clamp(ref_pt, min=0).long()
-        ref_has = ((ref_pt >= 0) & m.kf_feat_valid[self.ref_kf] & m.pt_valid[rp]
+        ref_has = ((ref_pt >= 0) & kf_feat_valid.index_select(0, ref)[0] & pt_valid[rp]
                    & (n_obs[rp] >= min_obs))
         ref_tracked = ref_has.sum(dtype=torch.int32)
 
-        Tcr = o2.Tcw @ se3.inv(m.kf_pose[self.ref_kf])
+        Tcr = o2.Tcw @ se3.inv(kf_pose.index_select(0, ref)[0])
         scalars = torch.stack([
             r.n_matches, o1.n_inliers, o2.n_inliers,
             tracked_close, untracked_close, ref_tracked,
         ]).to(torch.int32)
         poses_out = torch.stack([o2.Tcw, Tcr])
-        return frame, poses_out, pt2, new_visible, new_found, scalars
+        return frame, poses_out, pt2, local.idx, new_visible, new_found, scalars
 
-    def _commit_fused(self, step_out: tuple, timestamp: float) -> Optional[np.ndarray]:
-        """The per-frame state machine on the step's outputs (the JAX
-        ``_commit_fused`` with ``optimistic=False``)."""
-        frame, poses_out, pt2, nvis, nfnd, sc = step_out
-        poses_np = poses_out.cpu().numpy()
-        s = sc.cpu().numpy()
+    def _scalar(self, value, dtype) -> torch.Tensor:
+        """A 0-dim device tensor per (value, dtype), made once: the graph's
+        buffer is then refilled only when the value changes."""
+        key = (value, dtype)
+        if key not in self._scalars:
+            self._scalars[key] = torch.full((), value, dtype=dtype, device=self.device)
+        return self._scalars[key]
+
+    def _fused_inputs(self, raw_a, raw_b) -> dict:
+        """The fused step's inputs from the tracker's state and the map."""
+        last, m = self.last_frame, self.map
+        return dict(
+            raw_a=raw_a, raw_b=raw_b, last_pt=self.last_pt_idx, last_octave=last.octave,
+            last_angle=last.angle, last_pose=self.last_pose,
+            velocity=self._eye4 if self.velocity is None else self.velocity,
+            have_vel=self._scalar(self.velocity is not None, torch.bool),
+            ref_kf=self._scalar(int(self.ref_kf), torch.int32),
+            min_obs=self._scalar(3 if self.n_kf > 2 else 2, torch.int32),   # Tracking.cc:897
+            kf_pose=m.kf_pose, kf_point_idx=m.kf_point_idx, kf_feat_valid=m.kf_feat_valid,
+            pt_pos=m.pt_pos, pt_valid=m.pt_valid, pt_desc=m.pt_desc, pt_normal=m.pt_normal,
+            pt_min_dist=m.pt_min_dist, pt_max_dist=m.pt_max_dist, pt_visible=m.pt_visible,
+            pt_found=m.pt_found, pt_obs_kf=m.pt_obs_kf,
+        )
+
+    def _run_fused(self, inputs: dict):
+        """The fused step on ``inputs``: on the card one CUDA graph replay
+        (captured at the first call), on the CPU the eager step."""
+        if self.device.type != "cuda":
+            return self._fused_step(**inputs)
+        if self._graph is None:
+            self._graph = FusedGraph(self._fused_step)
+        return self._graph.run(inputs)
+
+    def _dispatch_fused(self, raw_a, raw_b, timestamp: float) -> dict:
+        """Enqueue the fused step and return an unresolved record: its
+        outputs and the tracker state it was dispatched from.  On the card
+        the pose stack and the scalars start their copy into pinned host
+        memory at once (``_start_read``)."""
+        frame, poses_out, pt2, local_idx, nvis, nfnd, sc = self._run_fused(
+            self._fused_inputs(raw_a, raw_b))
+        rec = dict(frame=frame, poses_out=poses_out, pt2=pt2, local_idx=local_idx,
+                   nvis=nvis, nfnd=nfnd, sc=sc, timestamp=timestamp, frame_id=self.frame_id,
+                   ref_kf=self.ref_kf,
+                   prev_pose=self.last_pose, prev_frame=self.last_frame,
+                   prev_pt_idx=self.last_pt_idx, prev_velocity=self.velocity)
+        rec["reads"] = (_start_read(poses_out), _start_read(sc))
+        return rec
+
+    def _commit_fused(self, rec: dict, *, optimistic: bool) -> Optional[np.ndarray]:
+        """The per-frame state machine on a resolved fused record (the JAX
+        ``_commit_fused``).  ``optimistic``: the tracker's ``last_*``
+        already hold this record's outputs (pipelined mode) and roll back to
+        the record's ``prev_*`` before a fallback or a loss.  Returns the
+        frame's pose or None."""
+        poses_np, s = (_finish_read(r) for r in rec["reads"])
         pose_np, Tcr_np = poses_np[0], poses_np[1]
+        frame, timestamp, frame_id = rec["frame"], rec["timestamp"], rec["frame_id"]
         n_motion, n_inl1, n_map, t_close, u_close, ref_tracked = (int(x) for x in s)
         ok_motion = n_motion >= 20 and n_inl1 >= self.cfg.tracking.min_inliers_track
 
+        def rollback():
+            if optimistic:
+                self.last_pose, self.last_frame = rec["prev_pose"], rec["prev_frame"]
+                self.last_pt_idx, self.velocity = rec["prev_pt_idx"], rec["prev_velocity"]
+
         if ok_motion:
             self.stats["motion_tracks"] += 1
-            pose, pt_idx = poses_out[0], pt2
+            pose, pt_idx = rec["poses_out"][0], rec["pt2"]
             n_map_inliers = n_map
-            self.map = self.map.replace(pt_visible=nvis, pt_found=nfnd)
+            if optimistic:
+                # the map may have moved on since the dispatch: the counters
+                # go in as index updates against the live banks
+                self.map = LM.update_visibility(self.map, rec["local_idx"], pt_idx)
+            else:
+                self.map = self.map.replace(pt_visible=rec["nvis"], pt_found=rec["nfnd"])
             close_counts = (t_close, u_close)
             self._ref_matches = ref_tracked
         else:
             # TrackReferenceKeyFrame fallback + decomposed local map
+            rollback()
             ok, pose, pt_idx = self._track_reference_keyframe(frame)
             if not ok:
                 self.state = TrackState.LOST
-                self._log_frame(timestamp, lost=True)
+                self._log_frame(timestamp, lost=True, frame_id=frame_id)
                 return None
             self.stats["ref_kf_tracks"] += 1
             pose, pt_idx, n_mi = self._track_local_map(frame, pose, pt_idx)
@@ -532,29 +665,88 @@ class SlamSystem:
             Tcr_np = None
             pose_np = None
 
-        if n_map_inliers < self._local_map_bar():
+        if n_map_inliers < self._local_map_bar(frame_id):
+            rollback()
             self.state = TrackState.LOST
-            self._log_frame(timestamp, lost=True)
+            self._log_frame(timestamp, lost=True, frame_id=frame_id)
             return None
 
-        self._advance(frame, pose, pt_idx)
-        if self._need_new_keyframe(frame, pt_idx, n_map_inliers, close_counts):
+        if not (ok_motion and optimistic):      # else last_* hold this record already
+            self._advance(frame, pose, pt_idx)
+        self.state = TrackState.OK
+        # the step's Tcr is relative to the reference keyframe of the
+        # dispatch, which an older record's keyframe may have replaced since
+        ref_kf = rec["ref_kf"] if Tcr_np is not None else self.ref_kf
+        if self._need_new_keyframe(frame, pt_idx, n_map_inliers, close_counts,
+                                   frame_id=frame_id):
             self._create_keyframe(frame, pose, pt_idx)
-            Tcr_np = None   # the reference keyframe changed; recompute
-        self._log_frame(timestamp, lost=False, Tcr=Tcr_np)
+            # the frame is the new keyframe: from the tracker's pose, which
+            # mapping moved with it, or, while younger frames are in flight
+            # and last_pose is theirs, as the keyframe itself
+            Tcr_np = np.eye(4, dtype=np.float32) if self._inflight else None
+            ref_kf = self.ref_kf
+        self._log_frame(timestamp, lost=False, Tcr=Tcr_np, frame_id=frame_id, ref_kf=ref_kf)
         return pose.cpu().numpy() if pose_np is None else pose_np
 
     def _track_fused(self, raw_a, raw_b, timestamp: float):
-        """Steady-state tracked frame: one step, two host reads."""
-        return self._commit_fused(self._fused_step(raw_a, raw_b), timestamp)
+        """Steady-state tracked frame: one dispatch, one host read."""
+        rec = self._dispatch_fused(raw_a, raw_b, timestamp)
+        pose = self._commit_fused(rec, optimistic=False)
+        if self.cooperative:
+            self._pump_mapping()
+        return pose
+
+    def flush_pipeline(self):
+        """Commit every frame in flight (nothing in synchronous mode).  Once
+        an older frame turns out lost, the younger ones' optimistic results
+        are void: they go through the decomposed path instead, with their
+        own frame ids (their frames were kept)."""
+        while self._inflight:
+            rec = self._inflight.pop(0)
+            if self.state == TrackState.OK:
+                self._commit_fused(rec, optimistic=True)
+            else:
+                saved = self.frame_id
+                self.frame_id = rec["frame_id"]
+                try:
+                    self._track(rec["frame"], rec["timestamp"])
+                finally:
+                    self.frame_id = saved
+
+    def _track_pipelined(self, raw_a, raw_b, timestamp: float):
+        """Optimistic pipelined tracking: commit the frames dispatched
+        ``pipeline_depth`` calls ago, dispatch this one against the
+        tracker's uncommitted device state, and return its pose as a device
+        tensor.  A loss shows up to ``depth`` frames late; the frames in
+        flight and this one then go through the decomposed path."""
+        while len(self._inflight) >= self.pipeline_depth:
+            self._commit_fused(self._inflight.pop(0), optimistic=True)
+            if self.state != TrackState.OK:
+                self.flush_pipeline()
+                return self._track(self._build_frame(raw_a, raw_b), timestamp)
+        rec = self._dispatch_fused(raw_a, raw_b, timestamp)
+        pose_dev = rec["poses_out"][0]
+        # optimistic tracker state: the next dispatch chains on device values
+        self.velocity = pose_dev @ se3.inv(self.last_pose)
+        self.last_pose = pose_dev
+        self.last_frame = rec["frame"]
+        self.last_pt_idx = rec["pt2"]
+        self._inflight.append(rec)
+        # one bounded mapping step in the shadow of this frame's device
+        # work, proportionally more when keyframes queue up
+        if self.cooperative:
+            backlog = self._coop_backlog()
+            self._pump_mapping(1 if backlog <= 1 else 4 * backlog)
+        return pose_dev
 
     # ----------------------------------------------------------- sub-steps
-    def _local_map_bar(self) -> int:
+    def _local_map_bar(self, frame_id: Optional[int] = None) -> int:
         """TrackLocalMap's inlier bar, stricter for ``max_frames_between_kf``
         frames after a relocalization (Tracking.cc:870-877)."""
         t = self.cfg.tracking
+        fid = self.frame_id if frame_id is None else frame_id
         recent = (self.last_reloc_frame_id >= 0
-                  and self.frame_id - self.last_reloc_frame_id < t.max_frames_between_kf)
+                  and fid - self.last_reloc_frame_id < t.max_frames_between_kf)
         return t.min_inliers_local_map_reloc if recent else t.min_inliers_local_map
 
     def _advance(self, frame: FrameData, pose, pt_idx, relocalized: bool = False):
@@ -805,10 +997,15 @@ class SlamSystem:
 
     # ----------------------------------------------------------- keyframes
     def _need_new_keyframe(self, frame: FrameData, pt_idx, n_inliers: int,
-                           close_counts: Optional[tuple] = None) -> bool:
-        """NeedNewKeyFrame (Tracking.cc:880-962) in synchronous mode, where
-        local mapping is always idle.  ``close_counts`` = (tracked_close,
-        untracked_close) from the fused step; computed here otherwise."""
+                           close_counts: Optional[tuple] = None,
+                           frame_id: Optional[int] = None) -> bool:
+        """NeedNewKeyFrame (Tracking.cc:880-962).  ``close_counts`` =
+        (tracked_close, untracked_close) from the fused step; computed here
+        otherwise.  ``frame_id``: the frame decided on, when it is not the
+        newest (a pipelined commit).  Cooperative mapping is busy while a
+        keyframe is queued or being mapped: then c1b fails, and a keyframe
+        that is still needed interrupts the local BA and, for stereo and
+        RGB-D, goes in while fewer than 3 are queued."""
         if self.n_kf >= self.cfg.map.max_keyframes - 2:
             telemetry.warn(
                 "kf_capacity",
@@ -817,7 +1014,9 @@ class SlamSystem:
                 "MapConfig.max_keyframes",
             )
             return False
-        frames_since = self.frame_id - self.last_kf_frame_id
+        mapper_idle = not self._coop_busy()
+        fid = self.frame_id if frame_id is None else frame_id
+        frames_since = fid - self.last_kf_frame_id
         ref_matches = self._ref_matches
         mono = self.sensor == "monocular"
         # thRefRatio (Tracking.cc:922-928): 0.9 for monocular, 0.4 with a
@@ -834,10 +1033,22 @@ class SlamSystem:
             tracked_close, untracked_close = close_counts
             need_close = tracked_close < 100 and untracked_close > 70
         c1a = frames_since >= self.cfg.tracking.max_frames_between_kf
-        c1b = frames_since >= self.cfg.tracking.min_frames_between_kf
+        c1b = frames_since >= self.cfg.tracking.min_frames_between_kf and mapper_idle
         c1c = not mono and (n_inliers < ref_matches * 0.25 or need_close)
         c2 = (n_inliers < ref_matches * th_ratio or need_close) and n_inliers > 15
-        return bool((c1a or c1b or c1c) and c2)
+        if not ((c1a or c1b or c1c) and c2):
+            return False
+        if mapper_idle:
+            return True
+        # mapping busy: interrupt its local BA (Tracking.cc:951 InterruptBA)
+        # and, for stereo and RGB-D, insert anyway while the queue is short
+        # (Tracking.cc:952-959), draining it here first when it is not
+        self.abort_ba = True
+        if mono:
+            return False
+        if self._coop_backlog() >= 3:
+            self._pump_mapping(32)
+        return self._coop_backlog() < 3
 
     def _insert_keyframe_arrays(self, frame: FrameData, pose, matched_pt,
                                 parent: int) -> int:
@@ -904,15 +1115,66 @@ class SlamSystem:
         return kf_slot
 
     def _create_keyframe(self, frame: FrameData, pose, pt_idx):
+        """Insert the keyframe, then map it: at once in synchronous and
+        pipelined mode, queued for the pump in cooperative mode.  The
+        tracker's associations re-anchor on the keyframe only when no newer
+        frame is in flight (a pipelined chain keeps ``last_pt_idx`` aligned
+        with ``last_frame``).  A pipelined commit runs after the next frame
+        was dispatched, so the keyframe takes that frame's id, as in the
+        JAX package."""
         kf_slot = self._insert_kf_with_points(frame, pose, pt_idx)
         self._set_ref_kf(kf_slot)
         self.last_kf_frame_id = self.frame_id
-        self._mapping_steps(kf_slot)
-        if self.loop_closing_enabled:
-            self._try_close_loop(kf_slot)
+        if not self._inflight:
+            self.last_pt_idx = self.map.kf_point_idx[kf_slot]
+        if self.cooperative:
+            self._coop_pending.append(kf_slot)
+            return
+        self._mapping_pipeline(kf_slot)
         # fusion may have merged landmarks the tracker references; re-read
         # the keyframe's (remapped) associations (MapPoint::Replace)
-        self.last_pt_idx = self.map.kf_point_idx[kf_slot]
+        if not self._inflight:
+            self.last_pt_idx = self.map.kf_point_idx[kf_slot]
+
+    def _mapping_pipeline(self, kf_slot: int):
+        """A keyframe's mapping and loop closing, run to completion."""
+        self._mapping_core(kf_slot)
+        if self.loop_closing_enabled:
+            self._try_close_loop(kf_slot)
+
+    # ------------------------------------------------- cooperative mapping
+    def _coop_busy(self) -> bool:
+        return self._coop_gen is not None or bool(self._coop_pending)
+
+    def _coop_backlog(self) -> int:
+        return len(self._coop_pending) + (1 if self._coop_gen else 0)
+
+    def _pump_mapping(self, budget: int = 1):
+        """Advance cooperative mapping by up to ``budget`` steps (a step is
+        what ``_mapping_steps`` does between two yields).  Called once per
+        tracked frame."""
+        for _ in range(budget):
+            if self._coop_gen is None:
+                if not self._coop_pending:
+                    return
+                self._coop_gen = self._coop_steps(self._coop_pending.pop(0))
+            try:
+                next(self._coop_gen)
+            except StopIteration:
+                self._coop_gen = None
+
+    def _coop_steps(self, kf_slot: int):
+        yield from self._mapping_steps(kf_slot)
+        if self.loop_closing_enabled:
+            yield
+            self._try_close_loop(kf_slot)
+
+    def _drain_mapping(self, max_steps: int = 10000):
+        """Run cooperative mapping to completion (shutdown, export)."""
+        steps = 0
+        while self._coop_busy() and steps < max_steps:
+            self._pump_mapping(16)
+            steps += 16
 
     # ------------------------------------------------------- loop closing
     def _try_close_loop(self, kf_slot: int) -> bool:
@@ -1096,9 +1358,9 @@ class SlamSystem:
 
     def _launch_gba(self, kf_cur: int, iters: int = 10):
         """RunGlobalBundleAdjustment (LoopClosing.cc:618-715): the whole map
-        with the PCG solver, the origin keyframe fixed.  Synchronous mode
-        runs it inline on the live map; the thread over a snapshot, its
-        abort flag and epoch check arrive with ROADMAP.md queue 1 item 12."""
+        with the PCG solver, the origin keyframe fixed, run inline on the
+        live map in every ported mode; the thread over a snapshot, its abort
+        flag and epoch check arrive with ROADMAP.md queue 1 item 12b."""
         self._gba_worker(self.map, self.n_kf, self.n_pt, iters)
 
     def _gba_worker(self, snapshot, n_kf_snap: int, n_pt_snap: int, iters: int):
@@ -1113,10 +1375,11 @@ class SlamSystem:
 
     def _merge_gba_result(self, snapshot, result, n_kf_snap: int, n_pt_snap: int):
         """The GBA's poses and points into the live map (LoopClosing.cc:
-        648-703), without its outlier classification.  In synchronous mode
-        the map took no keyframe and no point while the GBA ran, so the
+        648-703), without its outlier classification.  The GBA runs inline,
+        so the map took no keyframe and no point while it ran, and the
         spanning-tree propagation of corrections to newer ones has nothing
-        to move."""
+        to move.  With frames in flight the tracker re-anchors at its next
+        frame instead of now."""
         m = self.map
         K, P = m.kf_pose.shape[0], m.pt_pos.shape[0]
         in_gba = (snapshot.kf_valid & (torch.arange(K, device=self.device) < n_kf_snap)
@@ -1126,30 +1389,58 @@ class SlamSystem:
         self.map = m.replace(
             kf_pose=torch.where(in_gba[:, None, None], result.kf_poses, m.kf_pose),
             pt_pos=torch.where(in_gba_pt[:, None], result.points, m.pt_pos))
-        self.last_pose = self.map.kf_pose[self.ref_kf]
+        if self._inflight:
+            # the tracker re-anchors at its next frame
+            self._pending_pose_jump = int(self.ref_kf)
+        else:
+            self.last_pose = self.map.kf_pose[self.ref_kf]
 
     # ------------------------------------------------------- local mapping
+    def _mapping_core(self, kf_slot: int):
+        """The LocalMapping::Run body, run to completion (synchronous and
+        pipelined mode; cooperative mode pumps ``_mapping_steps`` instead)."""
+        for _ in self._mapping_steps(kf_slot):
+            pass
+
     def _mapping_steps(self, kf_slot: int):
-        """The LocalMapping::Run body (LocalMapping.cc:44-104), run to
-        completion: work sets, triangulation, fusion, recent-point culling
-        with the statistics refresh, the triangulation reconcile, the local
-        BA, keyframe culling."""
+        """The LocalMapping::Run body (LocalMapping.cc:44-104) as a step
+        generator: work sets, triangulation, fusion in both directions,
+        recent-point culling with the statistics refresh, the triangulation
+        reconcile, the local BA in chunks, keyframe culling.  It yields
+        where the JAX package's does, after each bounded unit of device
+        work: cooperative mode pumps one step per frame, so the yields decide
+        when later keyframes go in.  Every step reads the live map and
+        counters, which the tracker may have moved since the one before."""
         default_nb = 20 if self.sensor == "monocular" else 10
         nn = self.cfg.map.fuse_neighbors or default_nb
         n_nb = self.cfg.map.triangulate_neighbors or default_nb
         t_cap = 3 * nn + 2
         work = self._work_sets(kf_slot, nn=nn, t_cap=t_cap, n_neighbors=n_nb)
         tri_nb, fuse_slots, fuse_slots_dev, window, fixed, cull_cands = work
+        yield
         n_new, pt_base = self._triangulate_new_points(kf_slot, tri_nb)
+        # the count's download starts now; the reconcile reads it later
+        n_new = _start_read(n_new)
+        yield
         self._fuse_neighbors(kf_slot, fuse_slots, fuse_slots_dev)
+        yield
         self._cull_and_refresh(kf_slot)
+        yield
         self._reconcile_triangulation(n_new, pt_base)
+        yield
         if self.n_kf >= 3:
-            self._windowed_ba(window, fixed, 5, 10)
-            # keep the tracker's pose consistent with the adjusted keyframe
-            self.last_pose = self.map.kf_pose[kf_slot]
+            self.abort_ba = False       # a fresh run (LocalMapping.cc:66)
+            yield from self._windowed_ba_steps(window, fixed, 5, 10)
+            # keep the tracker's pose consistent with the adjusted keyframe,
+            # unless a newer frame in flight chains on the old one
+            if not self._inflight:
+                self.last_pose = self.map.kf_pose[kf_slot]
+        yield
         if self.n_kf >= 5:
-            self._cull_keyframes(kf_slot, cull_cands)
+            # the redundancy ratios go out one step ahead of the culling
+            ratios = LM.keyframe_redundancy(self.map, torch.clamp(cull_cands, min=0))
+            yield
+            self._cull_keyframes(kf_slot, cull_cands, ratios)
 
     def _work_sets(self, kf_slot: int, *, nn: int, t_cap: int, n_neighbors: int):
         """``mapping_work_sets`` on the device, then one host read of the
@@ -1188,7 +1479,7 @@ class SlamSystem:
             # (LocalMapping.cc:219)
             min_baseline_ratio=0.01 if self.sensor == "monocular" else 0.005,
         )
-        self.n_pt = min(pt_base + 64 * len(neighbors), cap)
+        self.n_pt = self._tri_reserved_end = min(pt_base + 64 * len(neighbors), cap)
         if self.n_pt >= cap - 64:
             telemetry.warn(
                 "pt_capacity",
@@ -1224,38 +1515,68 @@ class SlamSystem:
             scale_factor=self.cfg.orb.scale_factor, n_levels=self.cfg.orb.n_levels,
         )
 
-    def _reconcile_triangulation(self, n_new: torch.Tensor, pt_base: int):
-        """Hand back the reserved triangulation slots no point took (one
-        host read).  In synchronous mode no other allocation can come in
-        between, which the JAX package checks for its async modes."""
-        self.n_pt = pt_base + int(n_new)
+    def _reconcile_triangulation(self, n_new, pt_base: int):
+        """Hand back the reserved triangulation slots no point took, if no
+        other allocation came in since (cooperative mode may insert a
+        keyframe's depth points in between).  ``n_new`` is the count's
+        started download (``_start_read``)."""
+        n_new = int(_finish_read(n_new))
+        if self.n_pt == self._tri_reserved_end:
+            self.n_pt = pt_base + n_new
 
     def _windowed_ba(self, window_mask, fixed_mask, iters1: int, iters2: int):
-        """Local BA (Optimizer::LocalBundleAdjustment) on the compact
-        window: gather, ``iters1`` robust LM iterations, drop outliers,
-        ``iters2`` more, scatter back with the final outliers erased.  The
-        JAX package runs the iterations in chunks of 5 so that its async
-        modes can interrupt between them; in synchronous mode nothing does,
-        and the chunks give the same result as one run."""
+        """Local BA run to completion, not interruptible (the monocular
+        initializer's BA)."""
+        for _ in self._windowed_ba_steps(window_mask, fixed_mask, iters1, iters2,
+                                         abortable=False):
+            pass
+
+    def _windowed_ba_steps(self, window_mask, fixed_mask, iters1: int, iters2: int,
+                           abortable: bool = True):
+        """Local BA (Optimizer::LocalBundleAdjustment) on the compact window
+        as a step generator: gather, ``iters1`` robust LM iterations, drop
+        outliers, ``iters2`` more, scatter back with the final outliers
+        erased.  It yields after the gather and after every chunk of 5 LM
+        iterations; between chunks an ``abort_ba`` set by the tracker stops
+        it (mbAbortBA), and the progress so far is written back
+        (Optimizer.cc:650-694)."""
         mcfg = self.cfg.map
         prob, kf_sel, pt_sel, obs_sel, n_pt_in = map_ops.gather_ba_window(
             self.map, window_mask, fixed_mask, self.inv_sigma2_table,
             max_kfs=mcfg.local_ba_max_kfs, max_points=mcfg.local_ba_max_points,
             max_obs=mcfg.local_ba_max_obs,
         )
+        n_pt_in = _start_read(n_pt_in)
+        yield
         lam0 = lambda: torch.full((), 1e-4, dtype=torch.float32, device=self.device)
-        poses, points, _ = BA.lm_chunk(self.cam, prob, prob.kf_poses, prob.points,
-                                       lam0(), n_iters=iters1, use_huber=True)
-        if iters2 > 0:
+        stopped = False
+
+        def chunks(n, poses, points, lam):
+            nonlocal stopped
+            done = 0
+            while done < n and not stopped:
+                k = min(5, n - done)
+                poses, points, lam = BA.lm_chunk(self.cam, prob, poses, points, lam,
+                                                 n_iters=k, use_huber=True)
+                done += k
+                yield poses, points, lam
+                if abortable and done < n and self.abort_ba:
+                    stopped = True
+
+        poses, points = prob.kf_poses, prob.points
+        for poses, points, _ in chunks(iters1, poses, points, lam0()):
+            yield
+        if iters2 > 0 and not stopped:
             prob = prob._replace(obs_valid=BA.classify_outliers(self.cam, prob,
                                                                 poses, points))
+            yield
             # fresh damping for the re-classified problem, like g2o
-            poses, points, _ = BA.lm_chunk(self.cam, prob, poses, points, lam0(),
-                                           n_iters=iters2, use_huber=True)
+            for poses, points, _ in chunks(iters2, poses, points, lam0()):
+                yield
         final_valid = BA.classify_outliers(self.cam, prob, poses, points)
         self.map = map_ops.scatter_ba_window(self.map, prob, kf_sel, pt_sel, obs_sel,
                                              poses, points, final_valid)
-        n_pt_in = int(n_pt_in)
+        n_pt_in = int(_finish_read(n_pt_in))
         if n_pt_in > mcfg.local_ba_max_points:
             telemetry.warn(
                 "local_ba_point_overflow",
@@ -1264,14 +1585,14 @@ class SlamSystem:
                 "MapConfig.local_ba_max_points)",
             )
 
-    def _cull_keyframes(self, kf_slot: int, cull_cands):
+    def _cull_keyframes(self, kf_slot: int, cull_cands, ratios):
         """KeyFrameCulling (LocalMapping.cc:595-655): drop candidate
         keyframes with >= 90% redundant landmarks.  All candidates' ratios
-        come from one batched evaluation, read back with the candidates and
-        the parent bank in one host read; a ratio is evaluated again only
-        after an earlier candidate of the round was culled (culling removes
-        observations, which can only lower the other ratios)."""
-        ratios = LM.keyframe_redundancy(self.map, torch.clamp(cull_cands, min=0))
+        come from one batched evaluation (``ratios``, dispatched a step
+        earlier), read back with the candidates and the live parent bank in
+        one host read; a ratio is evaluated again only after an earlier
+        candidate of the round was culled (culling removes observations,
+        which can only lower the other ratios)."""
         host = torch.cat([cull_cands.to(torch.float32), ratios,
                           self.map.kf_parent.to(torch.float32)]).cpu().numpy()
         C = cull_cands.shape[0]
@@ -1406,10 +1727,15 @@ class SlamSystem:
         return False, None, None
 
     # ----------------------------------------------------------- trajectory
-    def _log_frame(self, timestamp, lost: bool, Tcr=None):
+    def _log_frame(self, timestamp, lost: bool, Tcr=None, frame_id: Optional[int] = None,
+                   ref_kf: Optional[int] = None):
+        """Log a frame's pose relative to ``ref_kf`` (the current reference
+        keyframe by default) as Tcr, by default the tracker's last pose's."""
+        ref_kf = self.ref_kf if ref_kf is None else ref_kf
         if Tcr is None:
-            Tcr = (self.last_pose @ se3.inv(self.map.kf_pose[self.ref_kf])).cpu().numpy()
-        self.trajectory.append(FrameLog(self.frame_id, timestamp, Tcr, self.ref_kf, lost))
+            Tcr = (self.last_pose @ se3.inv(self.map.kf_pose[ref_kf])).cpu().numpy()
+        self.trajectory.append(FrameLog(self.frame_id if frame_id is None else frame_id,
+                                        timestamp, Tcr, ref_kf, lost))
 
     def _resolve_kf_pose(self, kf: int, kf_poses: np.ndarray) -> np.ndarray:
         """Pose of a (possibly culled) keyframe, chaining relative
@@ -1424,7 +1750,9 @@ class SlamSystem:
         return chain @ kf_poses[kf]
 
     def tracked_logs(self) -> list[FrameLog]:
-        """Frame logs with a pose (lost frames skipped, System.cc:387-388)."""
+        """Frame logs with a pose (lost frames skipped, System.cc:387-388),
+        once the frames in flight are committed."""
+        self.flush_pipeline()
         return [log for log in self.trajectory if not log.lost]
 
     def tracked_frame_ids(self) -> np.ndarray:
@@ -1432,7 +1760,11 @@ class SlamSystem:
 
     def frame_poses(self) -> np.ndarray:
         """(n, 4, 4) Tcw per tracked frame, recomposed through the current
-        keyframe poses (System::SaveTrajectoryTUM, System.cc:355-415)."""
+        keyframe poses (System::SaveTrajectoryTUM, System.cc:355-415).  The
+        frames in flight are committed first: their keyframes and mapping
+        move the keyframe poses (the JAX package reads those poses before
+        it commits)."""
+        self.flush_pipeline()
         kf_poses = self.map.kf_pose.cpu().numpy()
         out = [log.Tcr @ self._resolve_kf_pose(log.ref_kf, kf_poses)
                for log in self.tracked_logs()]
@@ -1449,7 +1781,8 @@ class SlamSystem:
 
     def export_keyframe_trajectory_tum(self, path: str):
         """Keyframe-only trajectory (System::SaveKeyFrameTrajectoryTUM,
-        System.cc:417-450)."""
+        System.cc:417-450), after the frames in flight are committed."""
+        self.flush_pipeline()
         kf_poses = self.map.kf_pose.cpu().numpy()
         kf_valid = self.map.kf_valid.cpu().numpy()
         kf_fid = self.map.kf_frame_id.cpu().numpy()

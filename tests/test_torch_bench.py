@@ -4,10 +4,12 @@ naming CUDA and prints no result.  Its parts are rehearsed here: the
 configuration is the JAX ``bench.py``'s, the kernel self-check runs (the
 plain versions on CPU tensors) and leaves the launch counts as they were,
 one timed pass over 22 frames of the ``tests/test_torch_sequence.py``
-scenario (320x240) passes its own checks, and the JSON line has the JAX
-bench's keys plus ``device``.
+scenario (320x240) in the JAX bench's mode (cooperative mapping, pipelined
+at depth 3, read from its source) passes its own checks, and the JSON line
+has the JAX bench's keys plus ``device``.
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -40,8 +42,21 @@ def test_bench_without_cuda_exits_non_zero():
     assert "CUDA" in res.stderr and not res.stdout
 
 
+def _jax_bench_mode() -> dict:
+    """The keyword arguments of the ``SlamSystem(cfg, ...)`` call in the
+    JAX bench (``bench.py:66-67``), read from its source."""
+    tree = ast.parse(open(os.path.join(REPO, "bench.py")).read())
+    calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+             and getattr(n.func, "id", None) == "SlamSystem"]
+    assert len(calls) == 1
+    return {k.arg: ast.literal_eval(k.value) for k in calls[0].keywords}
+
+
 def test_bench_config_is_the_jax_bench_config():
-    """The configuration of ``bench.py:56-67``."""
+    """The configuration of ``bench.py:56-67``, and its cooperative,
+    pipelined depth-3 mode."""
+    assert bench.BENCH_MODE == _jax_bench_mode() == dict(
+        cooperative_mapping=True, pipelined=True, pipeline_depth=3)
     ref = J.SystemConfig(
         sensor="rgbd",
         camera=J.CameraConfig(fx=517.3, fy=516.5, cx=318.6, cy=255.3, bf=40.0,
@@ -65,12 +80,13 @@ def test_one_pass_on_the_cpu():
     frames = [(torch.from_numpy(np.clip(img, 0, 255).astype(np.uint8)),
                torch.from_numpy(np.clip(depth * 1000.0, 0, 65535).astype(np.uint16)))
               for img, depth in render(lateral_traj(22))]
-    slam = SlamSystem(TCFG, device="cpu")
+    slam = SlamSystem(TCFG, device="cpu", **bench.BENCH_MODE)
     slam.track_rgbd_device(*frames[0], 0.0)          # the pass resets the map first
     acc = {"t": 0.0}
     med, mean = bench.run_pass(slam, frames, 1, acc)
     assert med > 0 and mean > 0
     assert 4 <= slam.n_kf <= 64 and len(slam.tracked_logs()) == 22
+    assert not slam._inflight and not slam._coop_busy()
 
 
 def test_summary_has_the_jax_bench_keys():
@@ -79,4 +95,5 @@ def test_summary_has_the_jax_bench_keys():
     assert out["median_ms"] == 250.0 and out["mean_ms"] == 270.0
     assert out["value"] == 4.0 and out["vs_baseline"] == round(4.0 / 30.0, 3)
     assert out["median_spread_pct"] == 40.0 and out["device"] == "card, 700.00 W"
-    assert "synchronous mapping" in out["unit"] and "3 passes" in out["unit"]
+    assert "cooperative mapping" in out["unit"] and "pipeline depth 3" in out["unit"]
+    assert "3 passes" in out["unit"]

@@ -193,14 +193,13 @@ def test_slice_on_card_agrees_with_cpu(cuda):
         slam = SlamSystem(cfg, device=dev)
         rng = np.random.default_rng(0)
         scalars = []
-        step = slam._fused_step
+        commit = slam._commit_fused
 
-        def recorded(*a, **k):
-            out = step(*a, **k)
-            scalars.append(out[-1].cpu().numpy())
-            return out
+        def recorded(rec, **k):
+            scalars.append(rec["sc"].cpu().numpy())
+            return commit(rec, **k)
 
-        slam._fused_step = recorded
+        slam._commit_fused = recorded
         before = cuda_hamming.launches["window_match"]
         for i, T in enumerate(poses):
             img, depth = world.render_device(T, slam.cam, want_depth=True, noise=2.0,
@@ -264,3 +263,117 @@ def test_relocalization_on_card_agrees_with_cpu(cuda):
     assert (w_cpu, m_cpu) == (0, 0) and w_gpu >= 1 and m_gpu == 1
     assert n_gpu > 0 and abs(n_gpu - n_cpu) <= 0.02 * n_cpu + 2
     assert (i_gpu == i_cpu).mean() > 0.98
+
+
+# ------------------------------------------------- the fused step's graph
+def _graph_run(n_frames=21, compare=True, slam=None):
+    """The 320x240 room frames on the card: from the second tracked frame
+    on, each one through the graph and the eager step on the same inputs
+    (``compare``) before it is tracked, on ``slam`` or a new system.
+    Returns the system, the frames compared and those whose outputs
+    differed."""
+    from refactored_orb_slam2_tpu_torch.frontend.fused_graph import flat_tensors
+    from refactored_orb_slam2_tpu_torch.system import TrackState
+
+    cfg = SystemConfig(
+        sensor="rgbd",
+        camera=CameraConfig(fx=258.65, fy=258.25, cx=159.3, cy=127.65, bf=20.0,
+                            width=320, height=240),
+        orb=ORBConfig(n_features=500, n_levels=4),
+        map=MapConfig(max_keyframes=24, max_points=4096, max_obs_per_point=8),
+    )
+    world = W.scene_room(seed=11)
+    poses = W.traj_room_orbit(160, seed=5, span=0.45 * np.pi)[:n_frames]
+    rng = np.random.default_rng(0)
+    slam = slam or SlamSystem(cfg, device="cuda")
+    compared, unequal = 0, []
+    for i, T in enumerate(poses):
+        img, depth = world.render_device(T, slam.cam, want_depth=True, noise=2.0, rng=rng,
+                                         device="cuda")
+        if compare and slam._graph is not None and slam.state == TrackState.OK:
+            inputs = slam._fused_inputs(img, depth)
+            eager, graph = slam._fused_step(**inputs), slam._graph.run(inputs)
+            compared += 1
+            if not all(torch.equal(a, b) for a, b in zip(flat_tensors(eager), flat_tensors(graph))):
+                unequal.append(i)
+        assert slam.track_rgbd_device(img, depth, i / 30.0) is not None
+    return slam, compared, unequal
+
+
+def test_fused_graph_replay_equals_eager_step(cuda):
+    """20 tracked frames: every output of the replay torch.equal to the
+    eager step's on the same inputs."""
+    _, compared, unequal = _graph_run()
+    assert compared == 19 and unequal == []
+
+
+def test_fused_graph_captured_once_per_system_and_sensor(cuda):
+    slam, _, _ = _graph_run(compare=False)
+    assert slam._graph.captures == 1 and slam._graph.replays == 19
+    slam.reset()                          # the shapes stay, and so does the graph
+    _graph_run(n_frames=5, compare=False, slam=slam)
+    assert slam._graph.captures == 1 and slam._graph.replays == 23
+    assert SlamSystem(slam.cfg, device="cuda")._graph is None
+
+
+def test_pose_lm_captures_in_a_cuda_graph(cuda):
+    """The pose-only LM, ``torch.linalg.solve_ex`` of its 6x6 systems
+    included, captured in a CUDA graph: its replay equals the eager run,
+    also after the inputs change."""
+    from refactored_orb_slam2_tpu_torch.geometry import camera as cam_mod, se3
+    from refactored_orb_slam2_tpu_torch.optim.pose_opt import optimize_pose
+
+    cam = cam_mod.camera_from_config(CameraConfig(fx=400.0, fy=400.0, cx=160.0, cy=120.0,
+                                                  bf=40.0, width=320, height=240))
+    g = torch.Generator().manual_seed(3)
+    pw = torch.cat([torch.rand(300, 2, generator=g) * 4 - 2,
+                    torch.rand(300, 1, generator=g) * 6 + 2], dim=1).to(cuda)
+    T0 = se3.exp(torch.tensor([0.02, -0.01, 0.03, 0.01, 0.02, -0.01])).to(cuda)
+    obs = torch.cat([cam_mod.project(cam, pw) + torch.randn(300, 2, generator=g).to(cuda),
+                     torch.full((300, 1), -1.0, device=cuda)], dim=1)
+    args = dict(Tcw0=T0, points_w=pw, obs=obs, inv_sigma2=torch.ones(300, device=cuda),
+                valid=torch.ones(300, dtype=torch.bool, device=cuda),
+                is_stereo=torch.zeros(300, dtype=torch.bool, device=cuda))
+    static = {k: v.clone() for k, v in args.items()}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        optimize_pose(cam, **static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = optimize_pose(cam, **static)
+    for shift in (0.0, 0.5):
+        static["obs"].copy_(args["obs"] + shift)
+        graph.replay()
+        eager = optimize_pose(cam, **dict(args, obs=args["obs"] + shift))
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, eager))
+
+
+def test_fused_graph_capture_outlives_a_dead_graph(cuda):
+    """A dropped system whose graph sits in a reference cycle (the graph
+    holds the system's bound step) is collected before the next system's
+    capture, never during it, where freeing the dead graph's memory would
+    invalidate the capture."""
+    import gc
+
+    first, _, _ = _graph_run(n_frames=3, compare=False)
+    del first
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)                   # collect at nearly every allocation
+    try:
+        second, _, _ = _graph_run(n_frames=3, compare=False)
+    finally:
+        gc.set_threshold(*threshold)
+    assert second._graph.captures == 1 and second._graph.replays == 1
+
+
+def test_fused_graph_replay_adds_its_launches(cuda):
+    slam, _, _ = _graph_run(n_frames=4, compare=False)
+    graph = slam._graph
+    assert graph.launches == {"window_match": 1}
+    before = dict(cuda_hamming.launches)
+    out = graph.run({name: t for name, (t, _) in graph.copied.items()})
+    assert cuda_hamming.launches == dict(before, window_match=before["window_match"] + 1)
+    assert out[-1].shape == (6,)

@@ -11,9 +11,10 @@
   ``scripts/evaluate.py`` (numpy only, used as is) reads the trajectory
   against the rendered ground truth with an ATE under 0.02 m (the bound of
   ``test_torch_sequence.py``).
-- The async, pipelined and cooperative flags exit non-zero with the
-  system's "item 12" message; without ``--cpu`` on a machine without CUDA
-  the driver exits non-zero naming CUDA.
+- ``--async-mapping`` exits non-zero with the system's "item 12" message;
+  ``--coop``, ``--pipelined`` and ``--depth 3`` run on the CPU and track
+  every frame; without ``--cpu`` on a machine without CUDA the driver exits
+  non-zero naming CUDA.
 """
 
 import json
@@ -159,13 +160,35 @@ def test_driver_on_the_cpu_tracks_and_evaluate_reads_it(tmp_path):
     assert r["poses"] == N_FRAMES and r["ate_rmse_m"] < ATE_BOUND_M
 
 
+@pytest.fixture(scope="module")
+def rendered_tum(tmp_path_factory):
+    from test_torch_sequence import lateral_traj, render
+
+    root = tmp_path_factory.mktemp("modes")
+    traj = lateral_traj(N_FRAMES)
+    _write_rendered_tum(str(root / "seq"), traj, render(traj))
+    (root / "settings.yaml").write_text(SETTINGS)
+    return root
+
+
 @pytest.mark.parametrize("flags", [["--coop"], ["--async-mapping"], ["--pipelined"],
                                    ["--depth", "3"]])
-def test_item_12_flags_exit_non_zero(tmp_path, flags):
-    res = _driver(["rgbd_tum", "--data", str(tmp_path), "--cpu", *flags])
-    assert res.returncode != 0
-    assert "item 12" in res.stderr and "NotImplementedError" not in res.stderr
-    assert not res.stdout
+def test_item_12_flags_exit_non_zero(rendered_tum, flags):
+    """``--async-mapping`` exits non-zero with the system's "item 12"
+    message; ``--coop`` (pipelined at ``--depth``, 1 here), ``--pipelined``
+    and ``--depth 3`` (which, as in the JAX driver, only sets the depth of
+    ``--coop``) run and track every frame."""
+    out = rendered_tum / f"traj{'_'.join(flags)}.txt"
+    res = _driver(["rgbd_tum", "--data", str(rendered_tum / "seq"), "--settings",
+                   str(rendered_tum / "settings.yaml"), "--cpu", "--out", str(out), *flags])
+    if flags == ["--async-mapping"]:
+        assert res.returncode != 0
+        assert "item 12" in res.stderr and "NotImplementedError" not in res.stderr
+        assert not res.stdout
+        return
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert json.loads(res.stdout.strip().splitlines()[-1])["frames"] == N_FRAMES
+    assert len(out.read_text().splitlines()) == N_FRAMES
 
 
 def test_driver_without_cpu_needs_cuda(tmp_path):

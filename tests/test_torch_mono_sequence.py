@@ -162,7 +162,9 @@ def test_mono_branches_of_the_facade():
     assert TSlam(TCFG.replace(sensor="stereo"), device="cpu")._motion_window == 7.0
     with pytest.raises(ValueError, match="sensor"):
         TSlam(TCFG.replace(sensor="lidar"), device="cpu")
-    for kwargs in (dict(async_mapping=True), dict(pipelined=True),
-                   dict(cooperative_mapping=True)):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            TSlam(TCFG, device="cpu", **kwargs)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        TSlam(TCFG, device="cpu", async_mapping=True)
+    for kwargs in (dict(pipelined=True), dict(cooperative_mapping=True)):
+        slam = TSlam(TCFG, device="cpu", **kwargs)
+        assert (slam.pipelined, slam.cooperative) == (kwargs.get("pipelined", False),
+                                                      kwargs.get("cooperative_mapping", False))

@@ -108,8 +108,9 @@ def sequence(tmp_path_factory):
     # per mapped keyframe of the port: masked-kernel calls, points
     # triangulated, local BAs
     calls, per_kf, tri, ba = [0], [], [], []
-    best2, steps = cuda_hamming.hamming_best2, tsystem.SlamSystem._mapping_steps
-    triangulate, local_ba = tsystem.LM.triangulate_with_neighbors, tsystem.SlamSystem._windowed_ba
+    best2, steps = cuda_hamming.hamming_best2, tsystem.SlamSystem._mapping_core
+    triangulate, local_ba = (tsystem.LM.triangulate_with_neighbors,
+                             tsystem.SlamSystem._windowed_ba_steps)
 
     def counted_best2(*a, **k):
         calls[0] += 1
@@ -127,19 +128,19 @@ def sequence(tmp_path_factory):
 
     def counted_ba(self, *a, **k):
         ba.append(self.n_kf)
-        return local_ba(self, *a, **k)
+        yield from local_ba(self, *a, **k)
 
     cuda_hamming.hamming_best2 = counted_best2
-    tsystem.SlamSystem._mapping_steps = counted_steps
+    tsystem.SlamSystem._mapping_core = counted_steps
     tsystem.LM.triangulate_with_neighbors = counted_triangulate
-    tsystem.SlamSystem._windowed_ba = counted_ba
+    tsystem.SlamSystem._windowed_ba_steps = counted_ba
     try:
         out = run_both(frames)
     finally:
         cuda_hamming.hamming_best2 = best2
-        tsystem.SlamSystem._mapping_steps = steps
+        tsystem.SlamSystem._mapping_core = steps
         tsystem.LM.triangulate_with_neighbors = triangulate
-        tsystem.SlamSystem._windowed_ba = local_ba
+        tsystem.SlamSystem._windowed_ba_steps = local_ba
     paths = {}
     for name, (slam, _) in out.items():
         d = tmp_path_factory.mktemp(name)

@@ -142,7 +142,7 @@ def test_fused_step_goes_through_window_match(runs):
 
 def test_outside_the_slice_raises():
     """The stereo and monocular sensors and relocalization are inside the
-    port; an unknown sensor and the async modes are not.  A system that has
+    port; an unknown sensor and the async mode are not.  A system that has
     inserted no keyframe has no KeyFrameDB, so ``_relocalize`` finds no
     candidate, as the JAX package's does, and reads nothing."""
     for sensor in ("stereo", "monocular"):
@@ -150,7 +150,7 @@ def test_outside_the_slice_raises():
     with pytest.raises(ValueError, match="sensor"):
         TSlam(TCFG.replace(sensor="imu"), device="cpu")
     with pytest.raises(NotImplementedError, match="item 12"):
-        TSlam(TCFG, device="cpu", pipelined=True)
+        TSlam(TCFG, device="cpu", async_mapping=True)
     slam, ref = TSlam(TCFG, device="cpu"), JSlam(CFG)
     frame = slam._build_frame(torch.zeros((240, 320), dtype=torch.uint8),
                               torch.zeros((240, 320), dtype=torch.int32).to(torch.uint16))

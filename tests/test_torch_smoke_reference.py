@@ -19,7 +19,9 @@ relocalized and the camera centre's distance from the rendered one (within
 5% or 0.1 mm).  It prints frames tracked, n_kf, n_pt, the ATE and each
 relocalization, which PERF.md quotes as "JAX on the CPU".
 
-``test_jax_reference_circuit`` runs phase 10's street circuit
+``test_jax_reference_coop`` runs phase 12's bench mode (cooperative
+mapping, pipelined at depth 3) over the RGB-D frames and holds
+``JAX_COOP``.  ``test_jax_reference_circuit`` runs phase 10's street circuit
 (``chip_smoke.render_circuit``, the card's map capacity) and holds
 ``JAX_CIRCUIT``: frames lost, the loop's keyframe pair and frame, GBA runs
 and the rigidly aligned ATE (within 5%).  About 18 minutes on 8 cores, most
@@ -117,6 +119,40 @@ def test_jax_reference_circuit():
     assert pairs == [expect["loop"]] and pair_frames == [expect["loop_frames"]]
     assert closed[0][2] == expect["frame"]
     assert abs(ate - expect["ate"]) <= 0.05 * ate and ate < 0.01 * path
+
+
+@pytest.mark.slow
+def test_jax_reference_coop():
+    """Phase 12 (c): the RGB-D frames in the JAX bench's mode (cooperative
+    mapping, pipelined at depth 3), loop closing on; the frames in flight
+    committed and the mapping drained before the ATE is taken.  Holds
+    ``JAX_COOP``: lost, n_kf, the keyframe frames, n_pt, the ATE of the
+    logged trajectory and of the poses the calls returned (within 5%)."""
+    cfg = chip_smoke.rgbd_config()
+    poses = chip_smoke.smoke_poses()
+    frames = [tuple(t.numpy() for t in f) for f in chip_smoke.render_frames(cfg, poses, "cpu")]
+    slam = JSlam(reference_config(cfg), cooperative_mapping=True, pipelined=True,
+                 pipeline_depth=3)
+    out = [slam.track_rgbd_device(*f, i / cfg.camera.fps) for i, f in enumerate(frames)]
+    slam.flush_pipeline()
+    assert slam.wait_mapping_idle(timeout=300)
+    lost = sum(p is None for p in out) + sum(log.lost for log in slam.trajectory)
+    gt = chip_smoke.gt_centres(poses)
+    ate = chip_smoke.ate_rmse(slam.camera_centers(), gt[slam.tracked_frame_ids()])
+    stamps = np.asarray(slam.map.kf_frame_id)[:slam.n_kf].tolist()
+    # the poses each call returned, against the logged trajectory
+    returned = chip_smoke.ate_rmse(
+        np.stack([-(np.asarray(T)[:3, :3].T @ np.asarray(T)[:3, 3]) for T in out]), gt)
+    print(f"\nJAX on the CPU, RGB-D, cooperative mapping, pipelined depth 3: lost {lost}, "
+          f"n_kf {slam.n_kf}, keyframe frames {chip_smoke.keyframe_frames(slam)} "
+          f"(stamped {stamps}), "
+          f"n_pt {slam.n_pt}, culled {sorted(slam.culled_chain)}, ATE {ate:.7f} m (of the "
+          f"poses the calls returned {returned:.7f} m), paths {slam.stats}")
+    expect = chip_smoke.JAX_COOP
+    assert lost == expect["lost"] and slam.n_kf == expect["n_kf"]
+    assert chip_smoke.keyframe_frames(slam) == expect["kf_frames"] and slam.n_pt == expect["n_pt"]
+    assert abs(ate - expect["ate"]) <= 0.05 * ate
+    assert abs(returned - expect["ate_returned"]) <= 0.05 * returned
 
 
 @pytest.mark.slow
