@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--kernels-only | --circuit-only | --io-only | --pipelined-only]
+    python3 chip_smoke.py [--kernels-only | --circuit-only | --io-only | --pipelined-only |
+                           --async-only]
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
 
@@ -24,7 +25,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    features, window 10 x scale px, octave band +-1; 1200 x 1200 for the
    stereo preset), and loop closing's two on the circuit's camera: the
    fuse (1024 candidates x 1000 slots, window 4 x scale px, band +-1) and
-   the projection count (2048 x 1000, 10 px, no band).
+   the projection count (2048 x 1000, 10 px, no band).  Each kernel also
+   runs from a second thread under a stream of its own (as the async mode's
+   workers run them), equal to its plain version.
    Then both at the shapes wide loads and persistent grids can get wrong:
    column counts off every alignment, one row, one column, 20000 rows,
    6000 to 20000 columns, nothing to match, strided, transposed and
@@ -134,6 +137,23 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    median frame beside phase 4's, and a torch.profiler trace of frames
    100-102 (device events, busy share).  Both kernels must launch on this
    path ("pipelined": the window kernel inside the graph).
+13. async — SlamSystem(cfg, device="cuda", async_mapping=True): mapping and
+   loop closing on worker threads, a global BA on a thread per closed loop,
+   each on a CUDA stream of its own.  (a) phase 4's 160 frames: 160 of 160
+   tracked, n_kf >= 3, the masked kernel launched from the mapping thread,
+   every thread stopped by shutdown (which raises a worker's exception),
+   the ATE under ASYNC_ATE_BOUND_M (from the JAX package's async run); each
+   frame timed to the end of the tracker's stream, the median without
+   keyframe frames and the mean beside phase 12 (c)'s cooperative run (in
+   --async-only mode a cooperative run of its own), mapping per keyframe on
+   its thread, mapping_backlog warnings, and a torch.profiler trace of
+   three frames with a keyframe's mapping in flight (device busy share, the
+   streams' busy time and their overlap).  (b) phase 10's street circuit:
+   at most 2 lost, one loop edge, a GBA run and merged, the rigidly aligned
+   ATE under CIRCUIT_ATE_BOUND_M; the keyframes and points made while the
+   GBA ran (moved by its merge along the spanning tree) and its wall time
+   beside phase 10's synchronous one.  Both kernels must launch on this path
+   ("async": (a) and (b)).
 
 Since the fused step became one CUDA graph, every tracked frame of phases
 4-12 replays it; phase 5 and the stage lines of phases 7 and 8 run the
@@ -145,7 +165,7 @@ on a second system (frames 4-7 after the first tracked one).  Every path is
 driven with the kernels' launch counts set to 0 just before it and read
 just after ("relocalization" sums phase 9's four episodes, "loop" is
 phase 10, "io" phase 11 from its relocalization on, "pipelined" phase
-12 (c)).
+12 (c), "async" phase 13 (a) and (b)).
 ``tests/test_torch_smoke_reference.py`` (marked slow) runs the JAX package
 on the CPU over the same frames (phase 10: the circuit's) and holds the
 JAX_* constants below to what it gives.
@@ -162,6 +182,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 import warnings
 
@@ -234,6 +255,14 @@ CIRCUIT_F, CIRCUIT_DF = 320.0, 4.0
 JAX_COOP = {"lost": 0, "n_kf": 13,
             "kf_frames": [0, 41, 42, 43, 54, 55, 56, 70, 84, 98, 109, 111, 126],
             "n_pt": 3803, "ate": 0.0835487, "ate_returned": 0.0020481}
+# Phase 13 (a): the JAX package on the CPU over phase 4's frames in its async
+# mode, loop closing on (tests/test_torch_smoke_reference.py::
+# test_jax_reference_async): lost 0, n_kf 8 made at frames 0, 41, 53, 58, 75,
+# 95, 109, 125, n_pt 2546, no GBA, ATE 0.0034942 m.  The threads make the
+# run depend on the host's timing, so the bound is twice the larger of that
+# ATE and the synchronous run's, and n_kf is not held to JAX's.
+JAX_ASYNC_ATE_M = 0.0034942
+ASYNC_ATE_BOUND_M = 2 * max(JAX_ASYNC_ATE_M, JAX_ATE_M)
 JAX_CIRCUIT = {"lost": 0, "loop": (5, 88), "loop_frames": (6, 124), "frame": 124,
                "gba_runs": 1, "ate": 0.2420207}
 CIRCUIT_FRAME_TOL = 3
@@ -1061,7 +1090,8 @@ def _sequence(cfg, frames, poses, ate_bound: float, card: str):
           f"keyframe {tri}, masked-kernel launches per keyframe "
           f"{[m for *_, m in mapped]}, masked-kernel launches in stereo_match "
           f"{in_frames}, launches {launches}")
-    print(f"{name} sequence frame time: median {np.median(ms[first + 2:]):.2f} ms over frames "
+    print(f"{name} sequence frame time: median {np.median(ms[first + 2:]):.2f} ms, mean "
+          f"{ms[first + 2:].mean():.2f} ms over frames "
           f"{first + 2}-{n - 1}; without keyframe frames {np.median(ms[steady]):.2f} ms; "
           f"keyframe frames median {np.median(ms[kf_mask]):.2f} ms "
           f"(host clock with synchronize; {card})")
@@ -1302,7 +1332,7 @@ def _circuit(card: str) -> dict:
     ATE under 1% of the path and under CIRCUIT_ATE_BOUND_M.  Prints the
     loop path's synchronized times, the loop keyframe's host syncs and
     launches, the whole run's launches and the peak device memory.  Returns
-    the run's launches."""
+    the run's launches and the global BA's synchronized time (ms)."""
     from refactored_orb_slam2_tpu_torch.ops import cuda_hamming
     from refactored_orb_slam2_tpu_torch.system import SlamSystem
 
@@ -1403,7 +1433,8 @@ def _circuit(card: str) -> dict:
                              f"{0.01 * path:.3f} m")
     if not np.isfinite(slam.frame_poses()).all():
         raise AssertionError("circuit: non-finite poses")
-    return launches
+    gba_label = next(label for *_, label in _LOOP_STAGES if label.startswith("global BA"))
+    return launches, totals[gba_label] * 1e3 / counts[gba_label]
 
 
 # Phase 11: the orbit frames the loaded map is relocalized on, in
@@ -1629,7 +1660,8 @@ def _pipelined(frames, poses, phase4: dict, card: str) -> dict:
     fused step's CUDA graph against the eager step, (b) pipelined dispatch
     at depth 1 against phase 4's synchronous run, (c) the JAX bench's mode
     (cooperative mapping, pipelined at depth 3) against the JAX package's
-    run of it.  Returns the launches of (c), the "pipelined" path."""
+    run of it.  Returns the launches of (c), the "pipelined" path, and (c)'s
+    median and mean call."""
     from refactored_orb_slam2_tpu_torch import bench
     from refactored_orb_slam2_tpu_torch.frontend.fused_graph import flat_tensors
     from refactored_orb_slam2_tpu_torch.ops import cuda_hamming
@@ -1763,7 +1795,8 @@ def _pipelined(frames, poses, phase4: dict, card: str) -> dict:
         print(f"pipelined (c) trace: traced wall {wall_ms / len(TRACED):.2f} ms/frame; device "
               "busy not measured (the trace holds no device events)")
     print(f"pipelined: phase 12 took {time.perf_counter() - t_phase:.1f} s (host clock; {card})")
-    return launches
+    return launches, dict(median_ms=float(np.median(ms_c[2:])), mean_ms=float(ms_c[2:].mean()),
+                          source="phase 12 (c) in this call")
 
 
 N_BENCH_MODE = 40          # phases 7 and 8: frames in the JAX bench's mode
@@ -1793,6 +1826,339 @@ def _bench_mode(cfg, frames, poses, card: str) -> None:
           f"{'Sim3-aligned ' if cfg.sensor == 'monocular' else ''}ATE {ate:.6f} m, graph "
           f"captures {slam._graph.captures}, median call {np.median(ms[first + 2:]):.2f} ms "
           f"(host clock, calls as the caller waits; {card})")
+
+
+# Phase 13: the async mode.  (a) traces the three frames after the first
+# one, from frame ASYNC_TRACE_FROM on, that left a keyframe in flight (past
+# the first keyframes, whose mapping also pays the worker thread's first
+# use of the card's libraries).
+ASYNC_TRACE_FROM = 60
+
+
+def _stream_spans(events) -> dict:
+    """{stream id: (device events, busy us)} of a trace's device events
+    (the stream is the event's device resource; None where the profiler
+    gives none)."""
+    by = collections.defaultdict(list)
+    for e in events:
+        by[getattr(e, "device_resource_id", None)].append(e)
+    return {s: (len(ev), _busy_us(ev)) for s, ev in by.items()}
+
+
+def _async_room(frames, poses, phase4: dict, coop: dict | None, card: str) -> dict:
+    """Phase 13 (a): phase 4's frames on a fresh system in async mode
+    (mapping and loop closing on worker threads, each on its own stream),
+    loop closing on.  Asserts 160 of 160 tracked, n_kf >= 3, the masked
+    kernel launched from the mapping thread, every thread stopped by
+    shutdown (which raises a worker's exception), the ATE under
+    ASYNC_ATE_BOUND_M.  Each frame is timed to the end of the tracker's
+    stream (the workers' streams run on).  Returns the launches."""
+    from refactored_orb_slam2_tpu_torch import bench
+    from refactored_orb_slam2_tpu_torch.ops import cuda_hamming
+    from refactored_orb_slam2_tpu_torch.system import SlamSystem
+    from refactored_orb_slam2_tpu_torch.utils import telemetry
+
+    cfg = rgbd_config()
+    t_phase = time.perf_counter()
+    if coop is None:
+        # phase 12 did not run in this call: the cooperative mode's times
+        # from a run of its own, for the comparison
+        other = SlamSystem(cfg, device="cuda", **bench.BENCH_MODE)
+        _, ms_c, _ = _timed_run(other, frames)
+        other.wait_mapping_idle(timeout=300)
+        coop = dict(median_ms=float(np.median(ms_c[2:])), mean_ms=float(ms_c[2:].mean()),
+                    source="a cooperative run of phase 13's own")
+        del other
+    slam = SlamSystem(cfg, device="cuda", async_mapping=True)
+    mapped = []
+    steps = slam._mapping_steps
+
+    def timed_steps(kf_slot):
+        """A keyframe's mapping on the worker's thread, to the end of its
+        stream's work, and its masked launches."""
+        t0 = time.perf_counter()
+        before = cuda_hamming.thread_launches()["hamming_best2"]
+        yield from steps(kf_slot)
+        slam._sync_stream()
+        mapped.append((kf_slot, (time.perf_counter() - t0) * 1e3,
+                       cuda_hamming.thread_launches()["hamming_best2"] - before))
+
+    slam._mapping_steps = timed_steps
+    threads = slam.mapper.threads()
+    backlog = telemetry.get("warn.mapping_backlog")
+    tracker = torch.cuda.current_stream()
+    out, ms, kf_frames, trace, traced = [], [], [], None, []
+    cuda_hamming.reset_launches()
+    i = 0
+    while i < len(frames):
+        if trace is None and i > ASYNC_TRACE_FROM and not slam.mapper.idle:
+            # three frames with a keyframe's mapping in flight, traced
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity, profile
+
+            traced = list(range(i, min(i + 3, len(frames))))
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for k in traced:
+                    n_kf = slam.n_kf
+                    out.append(track_device(slam, frames[k], k))
+                    tracker.synchronize()
+                    if slam.n_kf != n_kf:
+                        kf_frames.append(k)
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            ms += [wall_ms / len(traced)] * len(traced)
+            trace = ([e for e in prof.events() if e.device_type == DeviceType.CUDA], wall_ms)
+            i = traced[-1] + 1
+            continue
+        n_kf = slam.n_kf
+        t0 = time.perf_counter()
+        out.append(track_device(slam, frames[i], i))
+        tracker.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if slam.n_kf != n_kf:
+            kf_frames.append(i)
+        i += 1
+    t0 = time.perf_counter()
+    if not slam.wait_mapping_idle(timeout=300):
+        raise AssertionError("async (a): the workers did not drain in 300 s")
+    drain_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(cuda_hamming.launches)
+    by_thread = {k: dict(v) for k, v in cuda_hamming.launches_by_thread.items()}
+    slam.shutdown()                       # raises a worker's exception
+    alive = [t.name for t in threads if t.is_alive()]
+    backlog = telemetry.get("warn.mapping_backlog") - backlog
+
+    lost = sum(p is None for p in out) + sum(log.lost for log in slam.trajectory)
+    gt = gt_centres(poses)[slam.tracked_frame_ids()]
+    ate = ate_rmse(slam.camera_centers(), gt)
+    ms = np.asarray(ms)
+    kf_mask = np.zeros(len(frames), bool)
+    kf_mask[kf_frames] = True
+    steady = ~kf_mask
+    steady[:2] = False
+    map_ms = [t for _, t, _ in mapped]
+    print(f"async (a), RGB-D: {len(slam.tracked_logs())}/{len(frames)} tracked, lost {lost}, "
+          f"n_kf {slam.n_kf} at frames {kf_frames} (synchronous phase 4: {phase4['kf_frames']}), "
+          f"n_pt {slam.n_pt}, culled {sorted(slam.culled_chain)}, ATE {ate:.6f} m (bound "
+          f"{ASYNC_ATE_BOUND_M:.7f} m: twice the larger of JAX's async {JAX_ASYNC_ATE_M} m and "
+          f"synchronous {JAX_ATE_M} m), paths {slam.stats}, mapping_backlog warnings {backlog}, "
+          f"threads alive after shutdown {alive}")
+    print(f"async (a) times: median frame without keyframe frames {np.median(ms[steady]):.2f} ms, "
+          f"mean frame {ms[2:].mean():.2f} ms, keyframe frames median "
+          f"{np.median(ms[kf_mask]) if kf_mask.any() else float('nan'):.2f} ms (host clock to "
+          f"the end of the tracker's stream); beside the cooperative mode's median "
+          f"{coop['median_ms']:.2f} ms and mean {coop['mean_ms']:.2f} ms ({coop['source']}, "
+          f"calls as the caller waits) and phase 4's synchronous median {phase4['steady_ms']:.2f} "
+          f"ms; mapping per keyframe on its thread median "
+          f"{np.median(map_ms) if map_ms else float('nan'):.2f} ms, each "
+          + " ".join(f"{t:.1f}" for t in map_ms)
+          + f" ms; drain after the last frame {drain_ms:.1f} ms ({card})")
+    print(f"async (a) launches {launches}, by thread {by_thread}; masked launches per mapped "
+          f"keyframe {[m for *_, m in mapped]}")
+    print(f"async (a) per-frame ms: " + " ".join(f"{t:.2f}" for t in ms))
+    if trace is not None:
+        dev, wall_ms = trace
+        spans = _stream_spans(dev)
+        union = _busy_us(dev)
+        overlap = sum(b for _, b in spans.values()) - union
+        print(f"async (a) trace, frames {traced} (keyframe mapping in flight): {len(dev)} device "
+              f"events, device busy {union / 1e3:.2f} ms in {wall_ms:.2f} ms of wall, busy share "
+              f"{union / 1e3 / wall_ms:.4f}; per stream (events, busy ms) "
+              + ", ".join(f"{s}: ({n}, {b / 1e3:.2f})" for s, (n, b) in sorted(
+                  spans.items(), key=lambda kv: -kv[1][0]))
+              + f"; streams overlapping {overlap / 1e3:.2f} ms ({card})")
+    else:
+        print("async (a) trace: no frame after frame "
+              f"{ASYNC_TRACE_FROM} found a keyframe in flight; not measured")
+    print(f"async (a): took {time.perf_counter() - t_phase:.1f} s (host clock; {card})")
+
+    if lost or len(slam.tracked_logs()) != len(frames):
+        raise AssertionError(f"async (a): lost {lost}")
+    if slam.n_kf < 3:
+        raise AssertionError(f"async (a): n_kf {slam.n_kf}")
+    if alive:
+        raise AssertionError(f"async (a): threads alive after shutdown: {alive}")
+    if not ate < ASYNC_ATE_BOUND_M:
+        raise AssertionError(f"async (a): ATE {ate:.6f} m >= {ASYNC_ATE_BOUND_M:.6f} m")
+    if launches["window_match"] < len(frames) - 1:
+        raise AssertionError(f"async (a): window_match launched {launches['window_match']} "
+                             f"times in {len(frames) - 1} fused frames")
+    if (not mapped or min(m for *_, m in mapped) < 1
+            or by_thread.get("local-mapping", {}).get("hamming_best2", 0) < 1):
+        raise AssertionError(f"async (a): masked launches per mapped keyframe "
+                             f"{[m for *_, m in mapped]}, by thread {by_thread}")
+    return launches
+
+
+# Phase 13 (b): the circuit's frames are offered one per
+# ASYNC_CIRCUIT_PERIOD_S (each no earlier than that after the one before
+# started), the rate at which mapping keeps up with a keyframe on nearly
+# every frame; the first ASYNC_SENSOR_FRAMES are also offered at the
+# camera's rate (10 fps), which is measured, not held.
+ASYNC_CIRCUIT_PERIOD_S = 0.7
+ASYNC_SENSOR_FRAMES = 40
+
+
+def _async_circuit_run(cfg, frames, period: float) -> dict:
+    """The circuit's frames through a fresh async system, one per
+    ``period`` s at most; every frame timed to the end of the tracker's
+    stream.  Returns the system (shut down) and what the run gave."""
+    from refactored_orb_slam2_tpu_torch.ops import cuda_hamming
+    from refactored_orb_slam2_tpu_torch.system import SlamSystem
+    from refactored_orb_slam2_tpu_torch.utils import telemetry
+
+    slam = SlamSystem(cfg, device="cuda", async_mapping=True)
+    gba, merges, mapped = [], [], []
+    worker, merge, steps = slam._gba_worker, slam._merge_gba_result, slam._mapping_steps
+
+    def timed_gba(snapshot, epoch, n_kf_snap, n_pt_snap, iters):
+        t0 = time.perf_counter()
+        worker(snapshot, epoch, n_kf_snap, n_pt_snap, iters)
+        slam._sync_stream()
+        gba.append(((time.perf_counter() - t0) * 1e3, n_kf_snap))
+
+    def counted_merge(snapshot, result, n_kf_snap, n_pt_snap):
+        merges.append((slam.n_kf - n_kf_snap, slam.n_pt - n_pt_snap))
+        merge(snapshot, result, n_kf_snap, n_pt_snap)
+
+    def timed_steps(kf_slot):
+        t0 = time.perf_counter()
+        yield from steps(kf_slot)
+        slam._sync_stream()
+        mapped.append((time.perf_counter() - t0) * 1e3)
+
+    slam._gba_worker, slam._merge_gba_result = timed_gba, counted_merge
+    slam._mapping_steps = timed_steps
+    threads = slam.mapper.threads()
+    backlog = telemetry.get("warn.mapping_backlog")
+    tracker = torch.cuda.current_stream()
+    cuda_hamming.reset_launches()
+    lost, ms, t_next = [], [], time.perf_counter()
+    for i, frame in enumerate(frames):
+        time.sleep(max(0.0, t_next - time.perf_counter()))
+        t0 = time.perf_counter()
+        t_next = t0 + period
+        if track_device(slam, frame, i) is None:
+            lost.append(i)
+        tracker.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    if not slam.wait_mapping_idle(timeout=600):
+        raise AssertionError("async (b): the workers did not drain in 600 s")
+    launches = dict(cuda_hamming.launches)
+    by_thread = {k: dict(v) for k, v in cuda_hamming.launches_by_thread.items()}
+    threads += [t for t in [slam._gba_thread] if t is not None and t not in threads]
+    slam.shutdown()
+    return dict(slam=slam, lost=lost, ms=np.asarray(ms), gba=gba, merges=merges,
+                mapped=mapped, launches=launches, by_thread=by_thread,
+                alive=[t.name for t in threads if t.is_alive()],
+                backlog=telemetry.get("warn.mapping_backlog") - backlog)
+
+
+def _async_circuit(card: str, sync_gba_ms: float | None) -> dict:
+    """Phase 13 (b): phase 10's street circuit in async mode at the card's
+    map capacity: the loop closed on the loop thread, the global BA on its
+    own thread and stream while tracking and mapping go on.  First the
+    camera's rate over ASYNC_SENSOR_FRAMES frames (measured), then every
+    frame offered once per ASYNC_CIRCUIT_PERIOD_S: at most 2 lost, one loop
+    edge, a GBA run and merged, every thread stopped, the rigidly aligned
+    ATE under CIRCUIT_ATE_BOUND_M.  Prints the keyframes made while the GBA
+    ran (the merge's propagation path) and its wall time.  Returns the
+    launches of the held run."""
+    cfg, poses = circuit_config(), circuit_poses()
+    t_phase = time.perf_counter()
+    frames = render_circuit(poses, "cuda")
+    torch.cuda.synchronize()
+
+    fast = _async_circuit_run(cfg, frames[:ASYNC_SENSOR_FRAMES], 1.0 / cfg.camera.fps)
+    print(f"async (b), circuit at the camera's {cfg.camera.fps} fps, frames 0-"
+          f"{ASYNC_SENSOR_FRAMES - 1} (measured, not held): lost {len(fast['lost'])} (from frame "
+          f"{fast['lost'][0] if fast['lost'] else None}), n_kf {fast['slam'].n_kf}, "
+          f"mapping_backlog warnings {fast['backlog']}, frame median "
+          f"{np.median(fast['ms']):.2f} ms, mean {fast['ms'].mean():.2f} ms, mapping per "
+          f"keyframe on its thread median {np.median(fast['mapped']):.1f} ms ({card})")
+    del fast
+
+    run = _async_circuit_run(cfg, frames, ASYNC_CIRCUIT_PERIOD_S)
+    slam, lost, ms = run["slam"], run["lost"], run["ms"]
+    gt = world_centres(poses)
+    ate = ate_rmse_se3(slam.camera_centers(), gt[slam.tracked_frame_ids()])
+    edges = slam.map.kf_loop_edges.cpu().numpy()
+    pairs = sorted({tuple(sorted((k, int(x)))) for k in range(edges.shape[0])
+                    for x in edges[k] if x >= 0})
+    kf_frame = slam.map.kf_frame_id.cpu().numpy()
+    pair_frames = [tuple(int(kf_frame[k]) for k in pair) for pair in pairs]
+    merged = slam.stats["gba_runs"] - slam.stats["gba_aborted"]
+    print(f"async (b), circuit, a frame per {ASYNC_CIRCUIT_PERIOD_S} s at most: "
+          f"{len(frames) - len(lost)}/{len(frames)} tracked, lost {lost}, n_kf {slam.n_kf}, "
+          f"n_pt {slam.n_pt}, kf_loop_edges pairs {pairs} made at frames {pair_frames} (JAX "
+          f"synchronous: {JAX_CIRCUIT['loop']} at {JAX_CIRCUIT['loop_frames']}), GBAs run "
+          f"{slam.stats['gba_runs']}, aborted {slam.stats['gba_aborted']}, merged {merged}; "
+          f"keyframes and points made while a GBA ran, moved by its merge {run['merges']}; "
+          f"rigidly aligned ATE {ate:.6f} m (bound {CIRCUIT_ATE_BOUND_M:.6f} m), "
+          f"mapping_backlog warnings {run['backlog']}, paths {slam.stats}, threads alive after "
+          f"shutdown {run['alive']}")
+    print(f"async (b) times: GBA wall on its thread "
+          + ", ".join(f"{t:.1f} ms (snapshot at n_kf {k})" for t, k in run["gba"])
+          + (f" beside phase 10's synchronous {sync_gba_ms:.1f} ms" if sync_gba_ms else
+             " (phase 10 did not run in this call)")
+          + f"; frame median {np.median(ms):.2f} ms, mean {ms.mean():.2f} ms, max "
+          f"{ms.max():.2f} ms (host clock to the end of the tracker's stream); mapping per "
+          f"keyframe on its thread median {np.median(run['mapped']):.1f} ms, max "
+          f"{max(run['mapped']):.1f} ms; launches {run['launches']}, by thread "
+          f"{run['by_thread']}; phase 13 (b) took {time.perf_counter() - t_phase:.1f} s ({card})")
+    print(f"async (b) per-frame ms: " + " ".join(f"{t:.0f}" for t in ms))
+    if len(lost) > 2:
+        raise AssertionError(f"async (b): {len(lost)} frames lost")
+    if len(pairs) != 1:
+        raise AssertionError(f"async (b): loop edges {pairs}")
+    if merged < 1 or not run["merges"]:
+        raise AssertionError(f"async (b): no GBA merged ({slam.stats})")
+    if run["alive"]:
+        raise AssertionError(f"async (b): threads alive after shutdown: {run['alive']}")
+    if not (ate < CIRCUIT_ATE_BOUND_M and np.isfinite(slam.frame_poses()).all()):
+        raise AssertionError(f"async (b): ATE {ate:.6f} m, bound {CIRCUIT_ATE_BOUND_M:.6f} m")
+    return run["launches"]
+
+def _side_stream_check(wargs, band, margs) -> int:
+    """Each kernel launched from a second thread under a stream of its own
+    (as the async mode's workers launch them), against its plain version;
+    returns the largest difference."""
+    from refactored_orb_slam2_tpu_torch.ops import cuda_hamming
+
+    stream, got, errors = torch.cuda.Stream(), {}, []
+    stream.wait_stream(torch.cuda.current_stream())
+
+    def work():
+        try:
+            with torch.cuda.stream(stream):
+                got["window_match"] = cuda_hamming.window_match(*wargs, band)
+                got["hamming_best2"] = cuda_hamming.hamming_best2(*margs)
+            stream.synchronize()
+        except Exception as e:
+            errors.append(e)
+
+    name = "phase-3-side-stream"
+    worker = threading.Thread(target=work, name=name)
+    worker.start()
+    worker.join(timeout=120)
+    if worker.is_alive() or errors:
+        raise AssertionError(f"kernels on a side stream: {errors or 'no end in 120 s'}")
+    refs = {"window_match": cuda_hamming.window_match_reference(*wargs, band),
+            "hamming_best2": cuda_hamming.hamming_best2_reference(*margs)}
+    counted = cuda_hamming.launches_by_thread.get(name, {})
+    err = 0
+    for kernel, ref in refs.items():
+        if not all(torch.equal(g, r) for g, r in zip(got[kernel], ref)):
+            raise AssertionError(f"{kernel} on a second thread's stream disagrees with its plain "
+                                 "version")
+        if counted.get(kernel) != 1:
+            raise AssertionError(f"{kernel}: {counted} launches counted on the second thread")
+        err = max(err, max(int((g - r).abs().max()) for g, r in zip(got[kernel], ref)))
+    print(f"kernels on a second thread under its own stream: window_match "
+          f"{wargs[0].shape[0]}x{wargs[1].shape[0]} and hamming_best2 (fuse "
+          f"{margs[0].shape[0]}x{margs[1].shape[0]}) equal to their plain versions (max_abs_err "
+          f"{err}), one launch each counted on that thread")
+    return err
 
 
 def _kernels(card: str) -> list:
@@ -1828,6 +2194,8 @@ def _kernels(card: str) -> list:
     # own so that the cases above keep their draws
     m_cases["rescue"], err = _masked_check(np.random.default_rng(4), "rescue")
     m_err = max(m_err, err)
+    err = _side_stream_check(wargs, band, m_cases["fuse"])
+    w_err, m_err = max(w_err, err), max(m_err, err)
 
     # what a kernel with wide loads, a bank in shared memory and a grid of
     # persistent blocks can get wrong: column counts off every alignment,
@@ -1948,7 +2316,7 @@ def main(mode: str = "") -> None:
         print(card)
         return
     if mode == "--circuit-only":
-        launches = _circuit(card)
+        launches, _ = _circuit(card)
         for row in kernels:
             row["launches"] = launches[row["name"]]
         print(json.dumps({"kernels": kernels}))
@@ -1973,13 +2341,23 @@ def main(mode: str = "") -> None:
     slam, r = _sequence(cfg, frames, poses, ATE_BOUND_M, card)
     by_path["rgbd"] = r["launches"]
     if mode == "--pipelined-only":
-        by_path["pipelined"] = _pipelined(frames, poses, r, card)
+        by_path["pipelined"], _ = _pipelined(frames, poses, r, card)
         _launch_rows(kernels, by_path, [])
         print(json.dumps({"kernels": kernels}))
         print(card)
         return
     if mode == "--io-only":
         by_path["io"] = _io(slam, frames, poses, r["median_ms"], card)
+        _launch_rows(kernels, by_path, [])
+        print(json.dumps({"kernels": kernels}))
+        print(card)
+        return
+    if mode == "--async-only":
+        del slam
+        room = _async_room(frames, poses, r, None, card)
+        del frames
+        circuit = _async_circuit(card, None)
+        by_path["async"] = {name: room[name] + circuit[name] for name in room}
         _launch_rows(kernels, by_path, [])
         print(json.dumps({"kernels": kernels}))
         print(card)
@@ -2006,7 +2384,9 @@ def main(mode: str = "") -> None:
     del slam
 
     # ---- 12. the fused step's graph, pipelined dispatch, cooperative mapping
-    by_path["pipelined"] = _pipelined(frames, poses, r, card)
+    by_path["pipelined"], coop = _pipelined(frames, poses, r, card)
+    # ---- 13 (a). the async mode on the same frames
+    room = _async_room(frames, poses, r, coop, card)
     del frames
 
     # ---- 7 and 8. the stereo and the monocular sequence, each with phase 9
@@ -2025,7 +2405,10 @@ def main(mode: str = "") -> None:
         del frames
 
     # ---- 10. the street circuit: a loop closed, corrected and adjusted
-    by_path["loop"] = _circuit(card)
+    by_path["loop"], gba_ms = _circuit(card)
+    # ---- 13 (b). the street circuit in async mode: the GBA on its thread
+    circuit = _async_circuit(card, gba_ms)
+    by_path["async"] = {name: room[name] + circuit[name] for name in room}
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     by_path["relocalization"] = {name: sum(r["launches"][name] for r in reloc)
@@ -2043,9 +2426,10 @@ if __name__ == "__main__":
     # --kernels-only stops after phase 3: the kernel JSON line (launches
     # null) and the card, without the device line of a whole run;
     # --circuit-only runs phases 1-3 and 10, --io-only phases 1-4 and 11,
-    # --pipelined-only phases 1-4 and 12, and each prints the same two lines
+    # --pipelined-only phases 1-4 and 12, --async-only phases 1-4 and 13,
+    # and each prints the same two lines
     if sys.argv[1:] not in ([], ["--kernels-only"], ["--circuit-only"], ["--io-only"],
-                            ["--pipelined-only"]):
+                            ["--pipelined-only"], ["--async-only"]):
         _fail("usage: python3 chip_smoke.py [--kernels-only | --circuit-only | --io-only | "
-              f"--pipelined-only] (got {sys.argv[1:]})")
+              f"--pipelined-only | --async-only] (got {sys.argv[1:]})")
     main(sys.argv[1] if sys.argv[1:] else "")

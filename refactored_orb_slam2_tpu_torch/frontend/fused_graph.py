@@ -22,9 +22,16 @@ in from Python state that changes between frames) in one
 
 A kernel wrapper counts a launch when it enqueues the kernel, which inside
 a capture happens once, without a launch.  So the counts the capture added
-are taken back and kept per graph, and every replay adds them again: the
-counts stay one per launch that ran.  A capture or a replay that fails
-raises; nothing falls back to the eager step.
+on its own thread are taken back and kept per graph, and every replay adds
+them again: the counts stay one per launch that ran, whatever other threads
+launch meanwhile.  A capture or a replay that fails raises; nothing falls
+back to the eager step.
+
+The capture runs in ``capture_error_mode="thread_local"``: in the global
+mode a synchronizing call or a ``cudaMalloc`` that another thread makes
+during the capture (the async mode's workers) invalidates it.  The async
+mode also stops its mapping worker at a yield, with its stream idle, around
+the capture (``AsyncMapper.stopped``).
 """
 
 from __future__ import annotations
@@ -100,7 +107,7 @@ class FusedGraph:
         # the main one
         _map_tensors(lambda t: t.record_stream(main), result)
 
-        counted = dict(cuda_hamming.launches)
+        counted = cuda_hamming.thread_launches()
         graph = torch.cuda.CUDAGraph()
         # a dead graph (another system's, in a reference cycle) that the
         # collector frees during the capture releases its memory there,
@@ -109,15 +116,17 @@ class FusedGraph:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, stream=side):
+            with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
                 self.outputs = self.step(**self.static)
         finally:
             if collecting:
                 gc.enable()
         main.wait_stream(side)
         self.launches = {name: n - counted[name]
-                         for name, n in cuda_hamming.launches.items() if n != counted[name]}
-        cuda_hamming.launches.update(counted)
+                         for name, n in cuda_hamming.thread_launches().items()
+                         if n != counted[name]}
+        for name, n in self.launches.items():
+            cuda_hamming.count(name, -n)
         self.graph = graph
         self.captures += 1
         return result
@@ -131,5 +140,5 @@ class FusedGraph:
         self.graph.replay()
         self.replays += 1
         for name, n in self.launches.items():
-            cuda_hamming.launches[name] += n
+            cuda_hamming.count(name, n)
         return _map_tensors(torch.clone, self.outputs)

@@ -37,6 +37,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -54,6 +55,9 @@ BUILD_DIR = _PKG / "build"
 
 #: kernel launches per wrapper since the last reset (CPU calls are not counted)
 launches = {name: 0 for name in SOURCES}
+#: the same per thread name (the tracker's thread, the async mode's workers)
+launches_by_thread: dict = {}
+_count_lock = threading.Lock()
 
 #: what nvcc printed for each kernel this process built (-Xptxas -v: the
 #: registers, shared memory and spills of every kernel)
@@ -63,8 +67,27 @@ _libs: dict = {}
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with _count_lock:
+        for name in launches:
+            launches[name] = 0
+        launches_by_thread.clear()
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` launches of ``name`` (negative: take them back) to the
+    totals and to the calling thread's counts."""
+    with _count_lock:
+        launches[name] += n
+        mine = launches_by_thread.setdefault(threading.current_thread().name,
+                                             dict.fromkeys(SOURCES, 0))
+        mine[name] += n
+
+
+def thread_launches() -> dict:
+    """A copy of the calling thread's launch counts."""
+    with _count_lock:
+        return dict(launches_by_thread.get(threading.current_thread().name,
+                                           dict.fromkeys(SOURCES, 0)))
 
 
 def _nvcc() -> str:
@@ -164,7 +187,7 @@ def _launch(name, args, n1, *ints):
             err = fn(*ptrs, *ints, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    launches[name] += 1
+    count(name)
     return out[0], out[1], out[2]
 
 

@@ -19,9 +19,8 @@ reference-format --settings YAML.  The system runs on the GPU; --cpu runs
 it on the CPU instead (there is no fallback from one to the other).
 Reading PNG sequences needs cv2, and --overlay-every matplotlib.  --coop
 runs cooperative mapping with pipelined dispatch at --depth, --pipelined
-pipelined dispatch at depth 1 (the JAX driver's flags); the async mode
-(--async-mapping) is not ported yet: the program exits non-zero with the
-system's message.
+pipelined dispatch at depth 1, --async-mapping local mapping and loop
+closing on worker threads (the JAX driver's flags).
 """
 
 from __future__ import annotations
@@ -96,9 +95,11 @@ def track_frames(slam, frames, *, max_frames: int | None = None,
     (host clock, the device synchronized at its end).  Stops after
     ``max_frames``; switches to localization-only mode after
     ``localization_after`` frames; draws an overlay every
-    ``overlay_every`` frames into ``overlay_dir``."""
+    ``overlay_every`` frames into ``overlay_dir``.  The synchronize is the
+    calling thread's stream's: in async mode the workers' streams run on."""
     sensor = slam.sensor
-    sync = (torch.cuda.synchronize if slam.device.type == "cuda" else (lambda: None))
+    sync = ((lambda: torch.cuda.current_stream(slam.device).synchronize())
+            if slam.device.type == "cuda" else (lambda: None))
     times = []
     n = 0
     for item in frames:
@@ -151,8 +152,8 @@ def main(argv=None):
                     help="trajectory output path (TUM format)")
     ap.add_argument("--out-kf", default=None, help="keyframe trajectory path")
     ap.add_argument("--async-mapping", action="store_true",
-                    help="run local mapping / loop closing on a worker thread "
-                         "(not ported yet: exits non-zero)")
+                    help="run local mapping / loop closing on worker threads "
+                         "(each on its own CUDA stream on the GPU)")
     ap.add_argument("--coop", action="store_true",
                     help="cooperative mapping: bounded mapping steps pumped "
                          "between frame dispatches, with pipelined dispatch "
@@ -183,13 +184,10 @@ def main(argv=None):
     if device == "cuda" and not torch.cuda.is_available():
         sys.exit("run_dataset: CUDA is not available; pass --cpu to run on the CPU")
     cfg = _config(args)
-    try:
-        slam = SlamSystem(cfg, device=device, async_mapping=args.async_mapping,
-                          pipelined=args.pipelined or args.coop,
-                          pipeline_depth=args.depth if args.coop else 1,
-                          cooperative_mapping=args.coop)
-    except NotImplementedError as e:
-        sys.exit(f"run_dataset: {e}")
+    slam = SlamSystem(cfg, device=device, async_mapping=args.async_mapping,
+                      pipelined=args.pipelined or args.coop,
+                      pipeline_depth=args.depth if args.coop else 1,
+                      cooperative_mapping=args.coop)
     seq = _sequence(args, cfg)
 
     times = track_frames(slam, seq, max_frames=args.max_frames,

@@ -57,27 +57,43 @@ What runs here, in the JAX package's order:
   ``compute_sim3`` per consistent candidate, the projection count, then
   ``_correct_loop`` (propagation through the covisible group, SearchAndFuse
   with the masked best-2 CUDA kernel, the essential graph, the point
-  correction) and the global BA (``_launch_gba``, run inline);
+  correction) and the global BA (``_launch_gba``, inline in the
+  single-thread modes);
+- ``async_mapping=True`` (``backend/async_mapper.py``): mapping and loop
+  closing run on worker threads, a global BA on a thread of its own over a
+  snapshot of the map, each on a CUDA stream of its own on the card.  The
+  tracker buffers its visibility counters (``_pending_vis``) and flushes
+  them at the keyframe insertion, waits at most 500 ms for a mapping
+  backlog of 3 to drain, and stops the mapping worker around the capture of
+  its CUDA graph.  Every map mutation takes ``_map_lock``; every map is
+  published with an event on the writer's stream (``map``).  A global BA
+  whose epoch moved (a newer loop, ``reset``) is dropped; one that merges
+  moves the keyframes and points made while it ran along the spanning
+  tree.  A local BA whose gathered window a loop correction or a GBA merge
+  overtook drops its result (``map_epoch``) instead of writing
+  pre-correction poses into the corrected map;
 - the trajectory products, chained through culled keyframes.
 
-The async mode (a mapping thread and the global-BA thread, ROADMAP.md queue
-1 item 12b) raises ``NotImplementedError``.  A tracked frame of the fused
-path reads one (6,) scalar vector and one (2, 4, 4) pose stack back to the
-host, through pinned memory, as the JAX facade does; a keyframe, a
-localization-only frame, a relocalization and a loop closure add the reads
-listed in PERF.md.
+A tracked frame of the fused path reads one (6,) scalar vector and one
+(2, 4, 4) pose stack back to the host, through pinned memory, as the JAX
+facade does; a keyframe, a localization-only frame, a relocalization and a
+loop closure add the reads listed in PERF.md.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
+import threading
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
 from .backend import local_mapping as LM
+from .backend.async_mapper import AsyncMapper
 from .backend import loop_closing as LC
 from .frontend import tracking_kernels as TK
 from .frontend.fused_graph import FusedGraph
@@ -89,7 +105,7 @@ from .geometry import se3, sim3
 from .geometry.camera import camera_from_config
 from .models import map_ops
 from .models.map_state import (
-    covisibility_matrix, create_empty, n_observations, update_point_stats,
+    MapState, covisibility_matrix, create_empty, n_observations, update_point_stats,
     update_point_stats_subset,
 )
 from .ops import matching as M
@@ -197,12 +213,6 @@ class SlamSystem:
         torch.backends.cudnn.allow_tf32 = False
         if cooperative_mapping and async_mapping:
             raise ValueError("cooperative_mapping and async_mapping are exclusive")
-        if async_mapping:
-            raise NotImplementedError(
-                "the async mode (a mapping thread and the global-BA thread) "
-                "arrives with ROADMAP.md queue 1 item 12b; the port runs the "
-                "synchronous, pipelined and cooperative modes"
-            )
         if config.sensor not in SENSORS:
             raise ValueError(f"sensor {config.sensor!r}: expected one of {SENSORS}")
         self.cfg = config
@@ -239,29 +249,61 @@ class SlamSystem:
         # cooperative mapping: local mapping advances as a step generator
         # pumped between frame dispatches on the tracking thread
         self.cooperative = cooperative_mapping
-        # mapping runs on the tracking thread in every ported mode: there is
-        # no mapper thread to wait for
-        self.mapper = None
+        # the async mode's worker threads (made after the first reset), and
+        # on the card one CUDA stream per worker: every map is then
+        # published with an event on the writer's stream (``map``)
+        self.mapper: Optional[AsyncMapper] = None
+        self._streams = None
+        if async_mapping and self.device.type == "cuda":
+            self._streams = {name: torch.cuda.Stream(self.device)
+                             for name in ("mapping", "loop", "gba")}
+        self._tls = threading.local()
+        # the LM chunk the local and the global BA run, an attribute so that
+        # a test can slow it down
+        self._lm_chunk = BA.lm_chunk
+        # the global BA thread (async mode), its stop flag and epoch
+        # (mnFullBAIdx, LoopClosing.cc:618-715), and the map's correction
+        # epoch, which a local BA's scatter checks
+        self._gba_thread: Optional[threading.Thread] = None
+        self._stop_gba = False
+        self.gba_epoch = 0
+        self.map_epoch = 0
         # the tracked frame as one CUDA graph, captured at the first fused
         # frame on the card and kept across reset() (the shapes stay)
         self._graph: Optional[FusedGraph] = None
         self._eye4 = torch.eye(4, dtype=torch.float32, device=self.device)
         self._scalars: dict = {}
-        # which tracking paths fired; a global BA is never aborted (it runs
-        # inline in every ported mode)
+        # which tracking paths fired; global BAs run and dropped, local BAs
+        # dropped because a correction overtook them (async mode)
         self.stats = {"motion_tracks": 0, "ref_kf_tracks": 0, "vo_tracks": 0,
-                      "relocs": 0, "reloc_rejects": 0, "gba_runs": 0, "gba_aborted": 0}
+                      "relocs": 0, "reloc_rejects": 0, "gba_runs": 0, "gba_aborted": 0,
+                      "local_ba_discarded": 0}
         # what each candidate of the last _relocalize call gave (see there)
         self.reloc_log: list[dict] = []
         self.localization_only = False
         self.frame_id = -1
         self.reset()
+        if async_mapping:
+            if self._streams is not None:
+                # what the tracker's stream made so far (the empty map, the
+                # tables above) is complete before a worker's stream reads it
+                torch.cuda.synchronize(self.device)
+            self.mapper = AsyncMapper(self)
 
     def reset(self):
         """Full reset: map, keyframe database, trajectory and counters
         (System::Reset -> Tracking::Reset, Tracking.cc:1365-1409).  The
-        frame counter and ``stats`` run on."""
-        self.map = create_empty(self.cfg.map, self.n_feat_slots, self.device)
+        frame counter and ``stats`` run on.  A global BA in flight is
+        stopped and its epoch moved; in async mode the workers finish what
+        they hold first, so that none writes a keyframe of the old map into
+        the new one."""
+        self._stop_gba = True
+        self.gba_epoch += 1
+        self.map_epoch += 1
+        if self.mapper is not None:
+            self.mapper.wait_idle(300)
+        with self._map_lock():
+            self.map = create_empty(self.cfg.map, self.n_feat_slots, self.device)
         self.n_kf = 0
         self.n_pt = 0
         self.state = TrackState.NOT_INITIALIZED
@@ -295,30 +337,112 @@ class SlamSystem:
         # BA's chunks poll it
         self.abort_ba = False
         # a keyframe the tracker re-anchors on at its next frame (a global
-        # BA merged while frames were in flight)
+        # BA merged while frames were in flight, or a loop corrected or a
+        # GBA merged on another thread)
         self._pending_pose_jump: Optional[int] = None
+        # the tracker's visibility counters, buffered in async mode and
+        # flushed at the next keyframe insertion
+        self._pending_vis: list = []
 
     def activate_localization_mode(self):
         """Track against the frozen map without inserting keyframes
         (System::ActivateLocalizationMode, System.cc:311-319), once the
-        frames in flight are committed and mapping has drained."""
+        frames in flight are committed and mapping has drained (in async
+        mode: the workers and a GBA in flight)."""
         self.flush_pipeline()
         self._drain_mapping()
+        if self.mapper is not None:
+            self.mapper.wait_idle(300)
         self.localization_only = True
 
     def deactivate_localization_mode(self):
         self.localization_only = False
 
     def shutdown(self):
-        """Drain the mapping pipeline (System::Shutdown, System.cc:336-353)."""
+        """Drain the mapping pipeline (System::Shutdown, System.cc:336-353):
+        commit the frames in flight, run cooperative mapping to its end, and
+        in async mode wait for the workers, stop them and raise the first
+        exception one of them kept."""
         self.flush_pipeline()
         self._drain_mapping()
+        if self.mapper is not None:
+            self.mapper.wait_idle(timeout=300)
+            mapper, self.mapper = self.mapper, None
+            mapper.shutdown()
 
     def wait_mapping_idle(self, timeout: float = 60.0) -> bool:
-        """Run cooperative mapping until every queued keyframe is mapped;
-        True when none is left (there is no mapper thread to time out)."""
+        """Run cooperative mapping until every queued keyframe is mapped, or
+        in async mode wait up to ``timeout`` s for the workers and a GBA in
+        flight; True when nothing is left."""
         self._drain_mapping()
+        if self.mapper is not None:
+            return self.mapper.wait_idle(timeout=timeout)
         return not self._coop_busy()
+
+    # ---------------------------------------------------- the published map
+    @property
+    def map(self) -> MapState:
+        """The published map, ready on the calling thread's current stream.
+        In async mode on the card each map comes with an event recorded on
+        its writer's stream: the first read on another thread's stream waits
+        for it, and marks every bank as used by that stream, so that the
+        caching allocator does not hand a bank's block back to the writer
+        while the reader's work on it is still queued.  A caller that reads
+        the map more than once for one result takes it once into a local."""
+        pub = self._pub
+        if pub[1] is not None and getattr(self._tls, "ready", None) is not pub:
+            self._make_ready(pub)
+        return pub[0]
+
+    @map.setter
+    def map(self, m: MapState) -> None:
+        event = None
+        if self._streams is not None:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        self._pub = self._tls.ready = (m, event)
+
+    def _make_ready(self, pub) -> MapState:
+        """``pub`` = (map, event) made ready on the current stream."""
+        m, event = pub
+        if event is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(event)
+            for f in dataclasses.fields(m):
+                getattr(m, f.name).record_stream(stream)
+        self._tls.ready = pub
+        return m
+
+    def _publish_under_lock(self) -> None:
+        """Publish the map again with an event after the device work this
+        thread queued since its last publish (the KeyFrameDB's rows, which
+        are written in place)."""
+        if self._streams is not None:
+            with self._map_lock():
+                self.map = self.map
+
+    def _map_lock(self):
+        """The map-writer lock (a null context without the async mode's
+        workers).  Held across one mutation's dispatch and its publish, the
+        read of ``self.map`` included, so that no other writer's publish is
+        lost between the two; host reads of the mapping path stay outside
+        it where the path allows."""
+        if self.mapper is not None:
+            return self.mapper.write_lock
+        return contextlib.nullcontext()
+
+    def _on_stream(self, name: str):
+        """A worker thread's stream as its current stream (a null context
+        on the CPU)."""
+        if self._streams is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._streams[name])
+
+    def _sync_stream(self) -> None:
+        """Wait for the calling thread's current stream (nothing on the
+        CPU)."""
+        if self._streams is not None:
+            torch.cuda.current_stream(self.device).synchronize()
 
     # ------------------------------------------------------------- tracking
     def _to_device(self, host: np.ndarray) -> torch.Tensor:
@@ -582,7 +706,9 @@ class SlamSystem:
         return self._scalars[key]
 
     def _fused_inputs(self, raw_a, raw_b) -> dict:
-        """The fused step's inputs from the tracker's state and the map."""
+        """The fused step's inputs from the tracker's state and the map,
+        read once (in async mode another thread may publish a new one
+        meanwhile)."""
         last, m = self.last_frame, self.map
         return dict(
             raw_a=raw_a, raw_b=raw_b, last_pt=self.last_pt_idx, last_octave=last.octave,
@@ -604,6 +730,10 @@ class SlamSystem:
             return self._fused_step(**inputs)
         if self._graph is None:
             self._graph = FusedGraph(self._fused_step)
+        if self._graph.graph is None and self.mapper is not None:
+            # the capture: the mapping worker parked, its stream idle
+            with self.mapper.stopped():
+                return self._graph.run(inputs)
         return self._graph.run(inputs)
 
     def _dispatch_fused(self, raw_a, raw_b, timestamp: float) -> dict:
@@ -642,7 +772,10 @@ class SlamSystem:
             self.stats["motion_tracks"] += 1
             pose, pt_idx = rec["poses_out"][0], rec["pt2"]
             n_map_inliers = n_map
-            if optimistic:
+            if self.mapper is not None:
+                # the mapper owns the map: buffered for the next keyframe
+                self._buffer_visibility(rec["local_idx"], pt_idx)
+            elif optimistic:
                 # the map may have moved on since the dispatch: the counters
                 # go in as index updates against the live banks
                 self.map = LM.update_visibility(self.map, rec["local_idx"], pt_idx)
@@ -846,8 +979,26 @@ class SlamSystem:
         res = TK.match_local_points(frame, local, m.pt_desc, pt_idx, th=1.0,
                                     scale_factors=self.scale_factors)
         pose, pt_idx, n_inl = self._pose_opt_against_map(frame, pose, res.pt_idx)
-        self.map = LM.update_visibility(self.map, local.idx, pt_idx)
+        # the counters feed MapPointCulling; in async mode the mapper owns
+        # the map and they wait for the next keyframe insertion
+        if self.mapper is None:
+            self.map = LM.update_visibility(self.map, local.idx, pt_idx)
+        else:
+            self._buffer_visibility(local.idx, pt_idx)
         return pose, pt_idx, n_inl
+
+    def _buffer_visibility(self, local_idx, pt_idx):
+        """Async mode: one frame's counters for ``_flush_pending_vis``; the
+        oldest go once 256 frames wait."""
+        self._pending_vis.append((local_idx, pt_idx))
+        if len(self._pending_vis) > 256:
+            self._pending_vis.pop(0)
+
+    def _flush_pending_vis(self):
+        """The buffered counters into the map (under the writer lock)."""
+        for vis, fnd in self._pending_vis:
+            self.map = LM.update_visibility(self.map, vis, fnd)
+        self._pending_vis.clear()
 
     # ------------------------------------------------------- initialization
     def _initialize_depth(self, frame: FrameData) -> bool:
@@ -1002,10 +1153,13 @@ class SlamSystem:
         """NeedNewKeyFrame (Tracking.cc:880-962).  ``close_counts`` =
         (tracked_close, untracked_close) from the fused step; computed here
         otherwise.  ``frame_id``: the frame decided on, when it is not the
-        newest (a pipelined commit).  Cooperative mapping is busy while a
-        keyframe is queued or being mapped: then c1b fails, and a keyframe
-        that is still needed interrupts the local BA and, for stereo and
-        RGB-D, goes in while fewer than 3 are queued."""
+        newest (a pipelined commit).  Mapping is busy while a keyframe is
+        queued or being mapped (cooperative mode) or while the mapping
+        worker is not idle (async mode): then c1b fails, and a keyframe that
+        is still needed interrupts the local BA and, for stereo and RGB-D,
+        goes in while fewer than 3 are queued; in async mode the tracker
+        waits up to 500 ms for the queue to drop below 3, then skips the
+        keyframe with a ``mapping_backlog`` warning."""
         if self.n_kf >= self.cfg.map.max_keyframes - 2:
             telemetry.warn(
                 "kf_capacity",
@@ -1014,7 +1168,7 @@ class SlamSystem:
                 "MapConfig.max_keyframes",
             )
             return False
-        mapper_idle = not self._coop_busy()
+        mapper_idle = self.mapper.idle if self.mapper is not None else not self._coop_busy()
         fid = self.frame_id if frame_id is None else frame_id
         frames_since = fid - self.last_kf_frame_id
         ref_matches = self._ref_matches
@@ -1046,9 +1200,24 @@ class SlamSystem:
         self.abort_ba = True
         if mono:
             return False
-        if self._coop_backlog() >= 3:
-            self._pump_mapping(32)
-        return self._coop_backlog() < 3
+        if self.mapper is None:
+            if self._coop_backlog() >= 3:
+                self._pump_mapping(32)
+            return self._coop_backlog() < 3
+        # async backpressure: a bounded window for the worker to drain
+        # rather than skipping a needed keyframe at once, which starves the
+        # map (the tracker sleeps, yielding the GIL)
+        deadline = time.monotonic() + 0.5
+        while self.mapper.queue_len() >= 3:
+            if time.monotonic() >= deadline:
+                telemetry.warn(
+                    "mapping_backlog",
+                    "mapping queue still full after 500 ms backpressure window — "
+                    "keyframe skipped (mapping cannot keep up with the frame rate)",
+                )
+                return False
+            time.sleep(0.005)
+        return True
 
     def _insert_keyframe_arrays(self, frame: FrameData, pose, matched_pt,
                                 parent: int) -> int:
@@ -1121,12 +1290,25 @@ class SlamSystem:
         frame is in flight (a pipelined chain keeps ``last_pt_idx`` aligned
         with ``last_frame``).  A pipelined commit runs after the next frame
         was dispatched, so the keyframe takes that frame's id, as in the
-        JAX package."""
-        kf_slot = self._insert_kf_with_points(frame, pose, pt_idx)
+        JAX package.  In async mode the insertion takes the writer lock,
+        flushes the buffered counters first, and the keyframe goes to the
+        mapping worker's queue."""
+        if self.mapper is not None:
+            # the worker's local BA in flight was already interrupted by
+            # _need_new_keyframe setting abort_ba
+            with self.mapper.paused():
+                self._flush_pending_vis()
+                kf_slot = self._insert_kf_with_points(frame, pose, pt_idx)
+                self._publish_under_lock()
+        else:
+            kf_slot = self._insert_kf_with_points(frame, pose, pt_idx)
         self._set_ref_kf(kf_slot)
         self.last_kf_frame_id = self.frame_id
         if not self._inflight:
             self.last_pt_idx = self.map.kf_point_idx[kf_slot]
+        if self.mapper is not None:
+            self.mapper.submit(kf_slot)
+            return
         if self.cooperative:
             self._coop_pending.append(kf_slot)
             return
@@ -1179,9 +1361,11 @@ class SlamSystem:
     # ------------------------------------------------------- loop closing
     def _try_close_loop(self, kf_slot: int) -> bool:
         """Detect and correct a loop at keyframe ``kf_slot`` (the
-        LoopClosing::Run body, synchronous).  Each candidate's RANSAC sets
-        come from a CPU generator seeded with the frame id, as the JAX
-        package seeds ``PRNGKey(frame_id)``."""
+        LoopClosing::Run body; in async mode on the loop worker's thread).
+        Each candidate's RANSAC sets come from a CPU generator seeded with
+        the frame id, as the JAX package seeds ``PRNGKey(frame_id)``.  An
+        accepted loop stops a GBA in flight, is corrected under the writer
+        lock, and starts a new GBA."""
         if self.db is None or self.n_kf < self.cfg.loop.kf_gap + 2:
             return False
         lcfg, orb = self.cfg.loop, self.cfg.orb
@@ -1208,8 +1392,12 @@ class SlamSystem:
                                                        *S_cw) + len(pairs)
             if n_total < lcfg.min_total_matches:
                 continue
-            self._correct_loop(kf_slot, cand, R_cm, t_cm, s_cm)
-            # the global BA (LoopClosing.cc:556), inline in synchronous mode
+            # abort a GBA in flight before correcting (LoopClosing.cc:382)
+            self._abort_running_gba()
+            with self._map_lock():
+                self._correct_loop(kf_slot, cand, R_cm, t_cm, s_cm)
+            # the global BA (LoopClosing.cc:556): inline in the single-thread
+            # modes, on a thread of its own in async mode
             self._launch_gba(kf_slot)
             return True
         return False
@@ -1234,7 +1422,9 @@ class SlamSystem:
         every corrected keyframe, LoopConnections, the essential graph, the
         point correction.  The caller runs the global BA after it.  Host
         reads: the covisibility matrix with the keyframe banks before the
-        fusion, the matrix after it."""
+        fusion, the matrix after it.  It moves ``map_epoch``: a local BA
+        gathered before it drops its result.  In async mode the tracker
+        re-anchors on the corrected keyframe at its next frame."""
         m, K = self.map, self.map.kf_pose.shape[0]
         dev = self.device
         orb = self.cfg.orb
@@ -1340,9 +1530,13 @@ class SlamSystem:
             kf_loop_edges=loop_edges_dev)
         self.map = update_point_stats(self.map, scale_factor=orb.scale_factor,
                                       n_levels=orb.n_levels)
+        self.map_epoch += 1
         self.loop_state.last_loop_kf = kf_cur
-        self.last_pose = self.map.kf_pose[kf_cur]
-        self.velocity = None
+        if self.mapper is None:
+            self.last_pose = self.map.kf_pose[kf_cur]
+            self.velocity = None
+        else:
+            self._pending_pose_jump = kf_cur
 
     # ------------------------------------------------------------ global BA
     def _global_ba(self, window_mask, fixed_mask, iters: int):
@@ -1356,44 +1550,148 @@ class SlamSystem:
         self.map = map_ops.writeback_ba(self.map, result.kf_poses, result.points,
                                         result.obs_valid, prob)
 
+    def _run_ba_chunked(self, prob, iters1: int, iters2: int, *, solver: str = "dense",
+                        n_cg: int = 0, chunk: int = 5, should_stop=None):
+        """The two-phase LM schedule in chunks of ``chunk`` iterations that
+        carry the damping across, as ``BA.run`` carries it within a phase
+        (fresh damping for phase 2).  Between chunks ``should_stop()`` may
+        end it early (g2o's force-stop flag: the local BA keeps its partial
+        progress, Optimizer.cc:650-694; the GBA drops it, LoopClosing.cc:
+        631); in async mode each chunk is waited for first, so that the
+        flag is polled against the device's progress.  Returns (BAResult,
+        stopped early)."""
+        stopped = False
+
+        def phase(n, poses, points):
+            nonlocal stopped
+            lam = torch.full((), 1e-4, dtype=torch.float32, device=poses.device)
+            done = 0
+            while done < n and not stopped:
+                k = min(chunk, n - done)
+                poses, points, lam = self._lm_chunk(self.cam, prob, poses, points, lam,
+                                                    n_iters=k, use_huber=True, solver=solver,
+                                                    n_cg=n_cg)
+                if should_stop is not None and self.mapper is not None:
+                    self._sync_stream()
+                done += k
+                if should_stop is not None and done < n and should_stop():
+                    stopped = True
+            return poses, points
+
+        poses, points = phase(iters1, prob.kf_poses, prob.points)
+        if iters2 > 0 and not stopped:
+            prob = prob._replace(obs_valid=BA.classify_outliers(self.cam, prob, poses, points))
+            poses, points = phase(iters2, poses, points)
+        final_valid = BA.classify_outliers(self.cam, prob, poses, points)
+        zero = torch.zeros((), dtype=torch.float32, device=poses.device)
+        return BA.BAResult(kf_poses=poses, points=points, obs_valid=final_valid,
+                           total_chi2=zero), stopped
+
     def _launch_gba(self, kf_cur: int, iters: int = 10):
         """RunGlobalBundleAdjustment (LoopClosing.cc:618-715): the whole map
-        with the PCG solver, the origin keyframe fixed, run inline on the
-        live map in every ported mode; the thread over a snapshot, its abort
-        flag and epoch check arrive with ROADMAP.md queue 1 item 12b."""
-        self._gba_worker(self.map, self.n_kf, self.n_pt, iters)
+        with the PCG solver, the origin keyframe fixed, over a snapshot (the
+        published map with its event: the banks are never written in place,
+        so it needs no copy).  Inline in the single-thread modes; in async
+        mode on a thread of its own and its own stream, which polls the
+        stop flag and the epoch between LM chunks."""
+        self.gba_epoch += 1
+        epoch = self.gba_epoch
+        self._stop_gba = False
+        snapshot = self._pub
+        n_kf_snap, n_pt_snap = self.n_kf, self.n_pt
+        if self.mapper is None:
+            self._gba_worker(snapshot[0], epoch, n_kf_snap, n_pt_snap, iters)
+            return
+        mapper = self.mapper
 
-    def _gba_worker(self, snapshot, n_kf_snap: int, n_pt_snap: int, iters: int):
+        def run():
+            try:
+                with self._on_stream("gba"):
+                    snap = self._make_ready(snapshot)
+                    self._gba_worker(snap, epoch, n_kf_snap, n_pt_snap, iters)
+            except Exception as e:      # kept for shutdown
+                mapper.record_exception(e)
+
+        self._gba_thread = threading.Thread(target=run, name="global-ba", daemon=True)
+        self._gba_thread.start()
+
+    def _abort_running_gba(self):
+        """Stop a GBA in flight and move its epoch (LoopClosing.cc:382-393)."""
+        if self._gba_thread is not None and self._gba_thread.is_alive():
+            self._stop_gba = True
+            self.gba_epoch += 1
+
+    def _gba_worker(self, snapshot, epoch: int, n_kf_snap: int, n_pt_snap: int,
+                    iters: int):
+        """The GBA over ``snapshot`` in chunks of 2 LM iterations; dropped
+        (``stats["gba_aborted"]``) when stopped or when the epoch moved, else
+        merged, in async mode under the writer lock after a second look at
+        the epoch."""
         K = snapshot.kf_pose.shape[0]
         slots = torch.arange(K, device=self.device)
         prob = map_ops.build_ba_problem(snapshot, snapshot.kf_valid & (slots != 0),
                                         slots == 0, self.inv_sigma2_table)
-        result = BA.run(self.cam, prob, iters_phase1=iters, iters_phase2=0, solver="pcg",
-                        n_cg=self.cfg.map.gba_cg_iters)
+        result, stopped = self._run_ba_chunked(
+            prob, iters, 0, solver="pcg", n_cg=self.cfg.map.gba_cg_iters, chunk=2,
+            should_stop=lambda: self._stop_gba or self.gba_epoch != epoch)
         self.stats["gba_runs"] += 1
-        self._merge_gba_result(snapshot, result, n_kf_snap, n_pt_snap)
+        if stopped or self.gba_epoch != epoch:
+            self.stats["gba_aborted"] += 1
+            return
+        with self._map_lock():
+            if self.gba_epoch != epoch:      # a second look under the lock
+                self.stats["gba_aborted"] += 1
+                return
+            self._merge_gba_result(snapshot, result, n_kf_snap, n_pt_snap)
 
     def _merge_gba_result(self, snapshot, result, n_kf_snap: int, n_pt_snap: int):
-        """The GBA's poses and points into the live map (LoopClosing.cc:
-        648-703), without its outlier classification.  The GBA runs inline,
-        so the map took no keyframe and no point while it ran, and the
-        spanning-tree propagation of corrections to newer ones has nothing
-        to move.  With frames in flight the tracker re-anchors at its next
-        frame instead of now."""
+        """The GBA's poses and points into the live map, with the spanning
+        tree carrying the correction to what was made while it ran
+        (LoopClosing.cc:648-703), without its outlier classification:
+
+        - a keyframe of the snapshot takes the GBA's pose;
+        - a keyframe made after the snapshot (``n_kf_snap <= k < n_kf``)
+          keeps its pose relative to its parent, composed onto the parent's
+          corrected pose, in ascending slot order, so that a parent is
+          corrected first;
+        - a point of the snapshot takes the GBA's position; a newer one
+          moves with its reference keyframe, ``x' = T_new^-1 (T_old x)``.
+
+        On the device; only the new keyframes' parents are read on the host.
+        It moves ``map_epoch``.  The caller holds the writer lock.  The
+        tracker re-anchors at its next frame when frames are in flight or
+        it runs on another thread, else at once."""
         m = self.map
         K, P = m.kf_pose.shape[0], m.pt_pos.shape[0]
-        in_gba = (snapshot.kf_valid & (torch.arange(K, device=self.device) < n_kf_snap)
-                  & m.kf_valid)
-        in_gba_pt = (snapshot.pt_valid & (torch.arange(P, device=self.device) < n_pt_snap)
-                     & m.pt_valid)
-        self.map = m.replace(
-            kf_pose=torch.where(in_gba[:, None, None], result.kf_poses, m.kf_pose),
-            pt_pos=torch.where(in_gba_pt[:, None], result.points, m.pt_pos))
-        if self._inflight:
+        dev = self.device
+        in_gba = (snapshot.kf_valid & (torch.arange(K, device=dev) < n_kf_snap) & m.kf_valid)
+        corrected = torch.where(in_gba[:, None, None], result.kf_poses, m.kf_pose)
+        n_kf = self.n_kf
+        if n_kf > n_kf_snap:
+            parents = m.kf_parent[n_kf_snap:n_kf].tolist()
+            for k, p in zip(range(n_kf_snap, n_kf), parents):
+                if p < 0:
+                    continue
+                # an LU inverse, as the JAX package's np.linalg.inv (the
+                # rigid inverse moves far points of the chain by 1e-5 m)
+                T_rel = m.kf_pose[k] @ torch.linalg.inv_ex(m.kf_pose[p]).inverse
+                ok = m.kf_valid[k] & m.kf_valid[p]
+                corrected[k] = torch.where(ok, T_rel @ corrected[p], corrected[k])
+        in_gba_pt = snapshot.pt_valid & (torch.arange(P, device=dev) < n_pt_snap)
+        pos = torch.where((in_gba_pt & m.pt_valid)[:, None], result.points, m.pt_pos)
+        ref = torch.clamp(m.pt_ref_kf, 0, K - 1).long()
+        newer = m.pt_valid & ~in_gba_pt & (m.pt_ref_kf >= 0) & m.kf_valid[ref]
+        T_old, T_new = m.kf_pose[ref], corrected[ref]
+        xc = torch.einsum("nij,nj->ni", T_old[:, :3, :3], pos) + T_old[:, :3, 3]
+        moved = torch.einsum("nji,nj->ni", T_new[:, :3, :3], xc - T_new[:, :3, 3])
+        self.map = m.replace(kf_pose=corrected,
+                             pt_pos=torch.where(newer[:, None], moved, pos))
+        self.map_epoch += 1
+        if self.mapper is None and not self._inflight:
+            self.last_pose = self.map.kf_pose[self.ref_kf]
+        else:
             # the tracker re-anchors at its next frame
             self._pending_pose_jump = int(self.ref_kf)
-        else:
-            self.last_pose = self.map.kf_pose[self.ref_kf]
 
     # ------------------------------------------------------- local mapping
     def _mapping_core(self, kf_slot: int):
@@ -1432,8 +1730,9 @@ class SlamSystem:
             self.abort_ba = False       # a fresh run (LocalMapping.cc:66)
             yield from self._windowed_ba_steps(window, fixed, 5, 10)
             # keep the tracker's pose consistent with the adjusted keyframe,
-            # unless a newer frame in flight chains on the old one
-            if not self._inflight:
+            # unless a newer frame in flight chains on the old one or the
+            # tracker runs on another thread
+            if self.mapper is None and not self._inflight:
                 self.last_pose = self.map.kf_pose[kf_slot]
         yield
         if self.n_kf >= 5:
@@ -1471,15 +1770,16 @@ class SlamSystem:
         point slot numbers decide every later index, so the port reserves
         the same way."""
         cap = self.map.pt_pos.shape[0]
-        pt_base = self.n_pt
-        self.map, n_new = LM.triangulate_with_neighbors(
-            self.map, kf_slot, neighbors, self.cam, pt_base, max_new=64,
-            scale_factor=self.cfg.orb.scale_factor, n_levels=self.cfg.orb.n_levels,
-            # mono requires a baseline of 1% of the median depth
-            # (LocalMapping.cc:219)
-            min_baseline_ratio=0.01 if self.sensor == "monocular" else 0.005,
-        )
-        self.n_pt = self._tri_reserved_end = min(pt_base + 64 * len(neighbors), cap)
+        with self._map_lock():
+            pt_base = self.n_pt
+            self.map, n_new = LM.triangulate_with_neighbors(
+                self.map, kf_slot, neighbors, self.cam, pt_base, max_new=64,
+                scale_factor=self.cfg.orb.scale_factor, n_levels=self.cfg.orb.n_levels,
+                # mono requires a baseline of 1% of the median depth
+                # (LocalMapping.cc:219)
+                min_baseline_ratio=0.01 if self.sensor == "monocular" else 0.005,
+            )
+            self.n_pt = self._tri_reserved_end = min(pt_base + 64 * len(neighbors), cap)
         if self.n_pt >= cap - 64:
             telemetry.warn(
                 "pt_capacity",
@@ -1493,36 +1793,39 @@ class SlamSystem:
         landmarks into every target, then every target's landmarks into
         this keyframe."""
         sf, nl = self.cfg.orb.scale_factor, self.cfg.orb.n_levels
-        self.map = LM.fuse_into_keyframes(
-            self.map, fuse_slots, self.cam, budget=1024, scale_factor=sf,
-            n_levels=nl, cand_idx=self.map.kf_point_idx[kf_slot],
-        )
-        # direction 2: membership of each observation in the target list
-        obs = self.map.pt_obs_kf
-        in_tgt = torch.any(obs[:, :, None] == fuse_slots_dev[None, None, :], dim=-1)
-        tgt_mask = self.map.pt_valid & torch.any(in_tgt & (obs >= 0), dim=1)
-        self.map = LM.fuse_into_keyframe(
-            self.map, kf_slot, self.cam, tgt_mask, budget=2048, scale_factor=sf,
-            n_levels=nl,
-        )
+        with self._map_lock():
+            self.map = LM.fuse_into_keyframes(
+                self.map, fuse_slots, self.cam, budget=1024, scale_factor=sf,
+                n_levels=nl, cand_idx=self.map.kf_point_idx[kf_slot],
+            )
+            # direction 2: membership of each observation in the target list
+            obs = self.map.pt_obs_kf
+            in_tgt = torch.any(obs[:, :, None] == fuse_slots_dev[None, None, :], dim=-1)
+            tgt_mask = self.map.pt_valid & torch.any(in_tgt & (obs >= 0), dim=1)
+            self.map = LM.fuse_into_keyframe(
+                self.map, kf_slot, self.cam, tgt_mask, budget=2048, scale_factor=sf,
+                n_levels=nl,
+            )
 
     def _cull_and_refresh(self, kf_slot: int):
         """MapPointCulling over the recent slots, then the statistics of the
         points this keyframe observes (all points it triangulated or fused)."""
-        self.map = LM.cull_recent_map_points(self.map, kf_slot, self.n_pt)
-        self.map = update_point_stats_subset(
-            self.map, self.map.kf_point_idx[kf_slot],
-            scale_factor=self.cfg.orb.scale_factor, n_levels=self.cfg.orb.n_levels,
-        )
+        with self._map_lock():
+            self.map = LM.cull_recent_map_points(self.map, kf_slot, self.n_pt)
+            self.map = update_point_stats_subset(
+                self.map, self.map.kf_point_idx[kf_slot],
+                scale_factor=self.cfg.orb.scale_factor, n_levels=self.cfg.orb.n_levels,
+            )
 
     def _reconcile_triangulation(self, n_new, pt_base: int):
         """Hand back the reserved triangulation slots no point took, if no
         other allocation came in since (cooperative mode may insert a
         keyframe's depth points in between).  ``n_new`` is the count's
         started download (``_start_read``)."""
-        n_new = int(_finish_read(n_new))
-        if self.n_pt == self._tri_reserved_end:
-            self.n_pt = pt_base + n_new
+        n_new = int(_finish_read(n_new))      # the read stays outside the lock
+        with self._map_lock():
+            if self.n_pt == self._tri_reserved_end:
+                self.n_pt = pt_base + n_new
 
     def _windowed_ba(self, window_mask, fixed_mask, iters1: int, iters2: int):
         """Local BA run to completion, not interruptible (the monocular
@@ -1539,8 +1842,13 @@ class SlamSystem:
         erased.  It yields after the gather and after every chunk of 5 LM
         iterations; between chunks an ``abort_ba`` set by the tracker stops
         it (mbAbortBA), and the progress so far is written back
-        (Optimizer.cc:650-694)."""
+        (Optimizer.cc:650-694).  In async mode each chunk is waited for
+        before the next is queued, and the scatter is dropped (counted in
+        ``stats["local_ba_discarded"]``) if a loop correction or a GBA merge
+        moved ``map_epoch`` since the gather: it would write pre-correction
+        poses into the corrected map."""
         mcfg = self.cfg.map
+        epoch = self.map_epoch
         prob, kf_sel, pt_sel, obs_sel, n_pt_in = map_ops.gather_ba_window(
             self.map, window_mask, fixed_mask, self.inv_sigma2_table,
             max_kfs=mcfg.local_ba_max_kfs, max_points=mcfg.local_ba_max_points,
@@ -1556,8 +1864,13 @@ class SlamSystem:
             done = 0
             while done < n and not stopped:
                 k = min(5, n - done)
-                poses, points, lam = BA.lm_chunk(self.cam, prob, poses, points, lam,
-                                                 n_iters=k, use_huber=True)
+                poses, points, lam = self._lm_chunk(self.cam, prob, poses, points, lam,
+                                                    n_iters=k, use_huber=True)
+                if self.mapper is not None:
+                    # async worker: this chunk done before the next is queued,
+                    # so that the abort flag is polled against the device's
+                    # progress
+                    self._sync_stream()
                 done += k
                 yield poses, points, lam
                 if abortable and done < n and self.abort_ba:
@@ -1574,8 +1887,12 @@ class SlamSystem:
             for poses, points, _ in chunks(iters2, poses, points, lam0()):
                 yield
         final_valid = BA.classify_outliers(self.cam, prob, poses, points)
-        self.map = map_ops.scatter_ba_window(self.map, prob, kf_sel, pt_sel, obs_sel,
-                                             poses, points, final_valid)
+        with self._map_lock():
+            if self.map_epoch == epoch:
+                self.map = map_ops.scatter_ba_window(self.map, prob, kf_sel, pt_sel, obs_sel,
+                                                     poses, points, final_valid)
+            else:
+                self.stats["local_ba_discarded"] += 1
         n_pt_in = int(_finish_read(n_pt_in))
         if n_pt_in > mcfg.local_ba_max_points:
             telemetry.warn(
@@ -1613,14 +1930,15 @@ class SlamSystem:
             self.culled_chain[cand] = (T_cp.cpu().numpy(), parent)
             # re-parent the children to the culled keyframe's parent
             children = np.nonzero(parents == cand)[0]
-            if len(children):
-                idx = torch.from_numpy(children).to(self.device)
-                self.map = self.map.replace(kf_parent=map_ops.set_rows(
-                    self.map.kf_parent, idx, parent))
-                parents[children] = parent
-            self.map = LM.remove_keyframe(self.map, cand)
-            if self.db is not None:
-                self.db.erase(cand)
+            idx = torch.from_numpy(children).to(self.device) if len(children) else None
+            with self._map_lock():
+                if idx is not None:
+                    self.map = self.map.replace(kf_parent=map_ops.set_rows(
+                        self.map.kf_parent, idx, parent))
+                    parents[children] = parent
+                self.map = LM.remove_keyframe(self.map, cand)
+                if self.db is not None:
+                    self.db.erase(cand)
             culled_this_round = True
 
     # ------------------------------------------------------- relocalization

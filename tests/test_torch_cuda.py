@@ -377,3 +377,113 @@ def test_fused_graph_replay_adds_its_launches(cuda):
     out = graph.run({name: t for name, (t, _) in graph.copied.items()})
     assert cuda_hamming.launches == dict(before, window_match=before["window_match"] + 1)
     assert out[-1].shape == (6,)
+
+
+# ----------------------------------------------------------- the async mode
+def test_async_tracking_on_card(cuda):
+    """The 320x240 room frames through the async mode on the card: every
+    frame tracked, the masked kernel launched from the mapping thread on its
+    stream, every thread stopped by shutdown, the ATE under twice the
+    synchronous run's on the same frames (or 1 cm)."""
+    runs = {}
+    for async_mapping in (False, True):
+        cfg = SystemConfig(
+            sensor="rgbd",
+            camera=CameraConfig(fx=258.65, fy=258.25, cx=159.3, cy=127.65, bf=20.0,
+                                width=320, height=240),
+            orb=ORBConfig(n_features=500, n_levels=4),
+            map=MapConfig(max_keyframes=128, max_points=32768, max_obs_per_point=8),
+        )
+        world = W.scene_room(seed=11)
+        poses = W.traj_room_orbit(160, seed=5, span=0.45 * np.pi)[:100]
+        rng = np.random.default_rng(0)
+        slam = SlamSystem(cfg, device="cuda", async_mapping=async_mapping)
+        threads = slam.mapper.threads() if async_mapping else []
+        cuda_hamming.reset_launches()
+        for i, T in enumerate(poses):
+            img, depth = world.render_device(T, slam.cam, want_depth=True, noise=2.0, rng=rng,
+                                             device="cuda")
+            assert slam.track_rgbd_device(img, depth, i / 30.0) is not None, i
+        assert slam.wait_mapping_idle(timeout=300)
+        by_thread = {k: dict(v) for k, v in cuda_hamming.launches_by_thread.items()}
+        slam.shutdown()
+        assert not any(t.is_alive() for t in threads)
+        runs[async_mapping] = (slam, by_thread)
+    slam, by_thread = runs[True]
+    assert slam.n_kf >= 2 and by_thread["local-mapping"]["hamming_best2"] >= 1
+    assert by_thread["MainThread"]["window_match"] >= 99
+    gt = np.stack([-(T[:3, :3].T @ T[:3, 3]) for T in poses])
+    ate = {k: float(np.sqrt(((s.camera_centers() - gt[s.tracked_frame_ids()]) ** 2)
+                            .sum(axis=1).mean())) for k, (s, _) in runs.items()}
+    assert ate[True] < max(2 * ate[False], 0.01), ate
+
+
+def test_masked_kernel_from_a_worker_thread_on_a_side_stream(cuda):
+    """hamming_best2 launched from another thread under its own stream, as
+    the async mode's workers launch it: equal to its plain version, counted
+    once on that thread."""
+    import threading
+
+    args = _masked_case(7, 2048, 1000, 0.02, cuda)
+    stream, got = torch.cuda.Stream(), []
+    stream.wait_stream(torch.cuda.current_stream())
+
+    def work():
+        with torch.cuda.stream(stream):
+            got.append(cuda_hamming.hamming_best2(*args))
+        stream.synchronize()
+
+    cuda_hamming.reset_launches()
+    worker = threading.Thread(target=work, name="side-stream-worker")
+    worker.start()
+    worker.join(timeout=120)
+    assert not worker.is_alive() and got
+    assert cuda_hamming.launches_by_thread["side-stream-worker"]["hamming_best2"] == 1
+    _assert_equal_to_plain(got[0], cuda_hamming.hamming_best2_reference(*args), 2048)
+
+
+def test_fused_graph_captured_while_the_mapping_worker_is_busy(cuda):
+    """The first fused frame's capture comes while the mapping worker runs
+    steps that allocate and launch on its stream: the worker parks at its
+    next yield around the capture (thread-local capture mode), the capture
+    holds, the replays equal the eager step, and the worker finishes its
+    steps afterwards."""
+    import threading
+
+    slam = SlamSystem(SystemConfig(
+        sensor="rgbd",
+        camera=CameraConfig(fx=258.65, fy=258.25, cx=159.3, cy=127.65, bf=20.0,
+                            width=320, height=240),
+        orb=ORBConfig(n_features=500, n_levels=4),
+        map=MapConfig(max_keyframes=24, max_points=4096, max_obs_per_point=8),
+    ), device="cuda", async_mapping=True)
+    started, done = threading.Event(), []
+
+    def busy(kf_slot):
+        for step in range(400):
+            x = torch.randn(512, 512, device="cuda")
+            (x @ x).sum().item()             # a host sync on the worker's stream
+            started.set()
+            yield
+        done.append(kf_slot)
+
+    slam._mapping_steps = busy
+    world = W.scene_room(seed=11)
+    poses = W.traj_room_orbit(160, seed=5, span=0.45 * np.pi)[:6]
+    rng = np.random.default_rng(0)
+    frames = [world.render_device(T, slam.cam, want_depth=True, noise=2.0, rng=rng,
+                                  device="cuda") for T in poses]
+    assert slam.track_rgbd_device(*frames[0], 0.0) is not None      # initialization
+    slam.mapper.submit(0)
+    assert started.wait(60)
+    assert slam.track_rgbd_device(*frames[1], 1 / 30.0) is not None  # the capture
+    assert slam._graph.captures == 1 and not done
+    from refactored_orb_slam2_tpu_torch.frontend.fused_graph import flat_tensors
+
+    for i in range(2, 6):
+        inputs = slam._fused_inputs(*frames[i])
+        eager, graph = slam._fused_step(**inputs), slam._graph.run(inputs)
+        assert all(torch.equal(a, b) for a, b in zip(flat_tensors(eager), flat_tensors(graph)))
+        assert slam.track_rgbd_device(*frames[i], i / 30.0) is not None
+    assert slam.wait_mapping_idle(timeout=300) and done == [0]
+    slam.shutdown()

@@ -11,9 +11,8 @@
   ``scripts/evaluate.py`` (numpy only, used as is) reads the trajectory
   against the rendered ground truth with an ATE under 0.02 m (the bound of
   ``test_torch_sequence.py``).
-- ``--async-mapping`` exits non-zero with the system's "item 12" message;
-  ``--coop``, ``--pipelined`` and ``--depth 3`` run on the CPU and track
-  every frame; without ``--cpu`` on a machine without CUDA the driver exits
+- ``--async-mapping``, ``--coop``, ``--pipelined`` and ``--depth 3`` run
+  on the CPU and track every frame; without ``--cpu`` on a machine without CUDA the driver exits
   non-zero naming CUDA.
 """
 
@@ -174,18 +173,13 @@ def rendered_tum(tmp_path_factory):
 @pytest.mark.parametrize("flags", [["--coop"], ["--async-mapping"], ["--pipelined"],
                                    ["--depth", "3"]])
 def test_item_12_flags_exit_non_zero(rendered_tum, flags):
-    """``--async-mapping`` exits non-zero with the system's "item 12"
-    message; ``--coop`` (pipelined at ``--depth``, 1 here), ``--pipelined``
-    and ``--depth 3`` (which, as in the JAX driver, only sets the depth of
-    ``--coop``) run and track every frame."""
+    """Every flag of item 12 runs and tracks every frame: ``--async-mapping``
+    (mapping and loop closing on worker threads), ``--coop`` (pipelined at
+    ``--depth``, 1 here), ``--pipelined`` and ``--depth 3`` (which, as in
+    the JAX driver, only sets the depth of ``--coop``)."""
     out = rendered_tum / f"traj{'_'.join(flags)}.txt"
     res = _driver(["rgbd_tum", "--data", str(rendered_tum / "seq"), "--settings",
                    str(rendered_tum / "settings.yaml"), "--cpu", "--out", str(out), *flags])
-    if flags == ["--async-mapping"]:
-        assert res.returncode != 0
-        assert "item 12" in res.stderr and "NotImplementedError" not in res.stderr
-        assert not res.stdout
-        return
     assert res.returncode == 0, res.stderr[-3000:]
     assert json.loads(res.stdout.strip().splitlines()[-1])["frames"] == N_FRAMES
     assert len(out.read_text().splitlines()) == N_FRAMES

@@ -6,8 +6,8 @@
 ``test_torch_sequence.py`` RGB-D scenario.  None of them waits for
 anything: the poses and the map are those of the same frames without the
 calls.  ``pipeline_depth`` 1 is accepted; the pipelined and cooperative
-modes (and ``pipeline_depth`` 3) track and shut down, and the async mode
-raises naming ROADMAP.md queue 1 item 12.
+modes (and ``pipeline_depth`` 3) track and shut down, and so does the async
+mode, its worker threads stopped.
 """
 
 import numpy as np
@@ -59,14 +59,14 @@ def test_run_dataset_shutdown(frames):
 @pytest.mark.parametrize("kw", [dict(pipeline_depth=3), dict(pipelined=True),
                                 dict(async_mapping=True), dict(cooperative_mapping=True)])
 def test_other_modes_raise_naming_item_12(frames, kw):
-    """The async mode raises naming item 12; the others construct, track 3
-    frames and shut down with nothing in flight or queued."""
-    if kw.get("async_mapping"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            SlamSystem(TCFG, device="cpu", **kw)
-        return
+    """Every mode of item 12 constructs, tracks 3 frames and shuts down with
+    nothing in flight or queued; the async mode's threads are stopped and
+    its mapper gone."""
     slam = SlamSystem(TCFG, device="cpu", **kw)
+    threads = slam.mapper.threads() if kw.get("async_mapping") else []
     out = _track(slam, frames[:3])
     slam.shutdown()
     assert all(p is not None for p in out) and len(slam.tracked_logs()) == 3
     assert not slam._inflight and not slam._coop_busy() and slam.wait_mapping_idle()
+    assert slam.mapper is None and not any(t.is_alive() for t in threads)
+    assert len(threads) == (2 if kw.get("async_mapping") else 0)

@@ -162,8 +162,10 @@ def test_mono_branches_of_the_facade():
     assert TSlam(TCFG.replace(sensor="stereo"), device="cpu")._motion_window == 7.0
     with pytest.raises(ValueError, match="sensor"):
         TSlam(TCFG.replace(sensor="lidar"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TSlam(TCFG, device="cpu", async_mapping=True)
+    async_slam = TSlam(TCFG, device="cpu", async_mapping=True)
+    assert async_slam.mapper is not None and async_slam.sensor == "monocular"
+    async_slam.shutdown()
+    assert async_slam.mapper is None
     for kwargs in (dict(pipelined=True), dict(cooperative_mapping=True)):
         slam = TSlam(TCFG, device="cpu", **kwargs)
         assert (slam.pipelined, slam.cooperative) == (kwargs.get("pipelined", False),

@@ -141,16 +141,18 @@ def test_fused_step_goes_through_window_match(runs):
 
 
 def test_outside_the_slice_raises():
-    """The stereo and monocular sensors and relocalization are inside the
-    port; an unknown sensor and the async mode are not.  A system that has
+    """The stereo and monocular sensors, relocalization and the async mode
+    are inside the port; an unknown sensor is not.  A system that has
     inserted no keyframe has no KeyFrameDB, so ``_relocalize`` finds no
     candidate, as the JAX package's does, and reads nothing."""
     for sensor in ("stereo", "monocular"):
         assert TSlam(TCFG.replace(sensor=sensor), device="cpu").sensor == sensor
     with pytest.raises(ValueError, match="sensor"):
         TSlam(TCFG.replace(sensor="imu"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TSlam(TCFG, device="cpu", async_mapping=True)
+    async_slam = TSlam(TCFG, device="cpu", async_mapping=True)
+    assert async_slam.mapper is not None and async_slam.wait_mapping_idle(timeout=60)
+    async_slam.shutdown()
+    assert async_slam.mapper is None
     slam, ref = TSlam(TCFG, device="cpu"), JSlam(CFG)
     frame = slam._build_frame(torch.zeros((240, 320), dtype=torch.uint8),
                               torch.zeros((240, 320), dtype=torch.int32).to(torch.uint16))

@@ -21,7 +21,10 @@ relocalization, which PERF.md quotes as "JAX on the CPU".
 
 ``test_jax_reference_coop`` runs phase 12's bench mode (cooperative
 mapping, pipelined at depth 3) over the RGB-D frames and holds
-``JAX_COOP``.  ``test_jax_reference_circuit`` runs phase 10's street circuit
+``JAX_COOP``.  ``test_jax_reference_async`` runs phase 13 (a)'s async mode
+(a mapping thread, a loop-closing thread) over the RGB-D frames and records
+``JAX_ASYNC_ATE_M``, from which ``ASYNC_ATE_BOUND_M`` is set.
+``test_jax_reference_circuit`` runs phase 10's street circuit
 (``chip_smoke.render_circuit``, the card's map capacity) and holds
 ``JAX_CIRCUIT``: frames lost, the loop's keyframe pair and frame, GBA runs
 and the rigidly aligned ATE (within 5%).  About 18 minutes on 8 cores, most
@@ -153,6 +156,30 @@ def test_jax_reference_coop():
     assert chip_smoke.keyframe_frames(slam) == expect["kf_frames"] and slam.n_pt == expect["n_pt"]
     assert abs(ate - expect["ate"]) <= 0.05 * ate
     assert abs(returned - expect["ate_returned"]) <= 0.05 * returned
+
+
+@pytest.mark.slow
+def test_jax_reference_async():
+    """Phase 13 (a): the RGB-D frames through the JAX package's async mode
+    (``async_mapping=True``: mapping and loop closing on their own threads),
+    loop closing on, shut down before the ATE is taken.  The threads make
+    the run vary with the host's timing, so it is held only to 0 lost and to
+    a bound that covers it: ``ASYNC_ATE_BOUND_M``, twice the larger of this
+    ATE (``JAX_ASYNC_ATE_M``) and the synchronous run's."""
+    cfg = chip_smoke.rgbd_config()
+    poses = chip_smoke.smoke_poses()
+    frames = [tuple(t.numpy() for t in f) for f in chip_smoke.render_frames(cfg, poses, "cpu")]
+    slam = JSlam(reference_config(cfg), async_mapping=True)
+    out = [slam.track_rgbd_device(*f, i / cfg.camera.fps) for i, f in enumerate(frames)]
+    slam.shutdown()
+    lost = sum(p is None for p in out)
+    gt = chip_smoke.gt_centres(poses)
+    ate = chip_smoke.ate_rmse(slam.camera_centers(), gt[slam.tracked_frame_ids()])
+    print(f"\nJAX on the CPU, RGB-D, async mapping: lost {lost}, n_kf {slam.n_kf}, keyframe "
+          f"frames {np.asarray(slam.map.kf_frame_id)[:slam.n_kf].tolist()}, n_pt {slam.n_pt}, "
+          f"culled {sorted(slam.culled_chain)}, ATE {ate:.7f} m, paths {slam.stats}")
+    assert lost == 0 and slam.n_kf >= 3
+    assert 2 * max(ate, chip_smoke.JAX_ATE_M) <= chip_smoke.ASYNC_ATE_BOUND_M
 
 
 @pytest.mark.slow
