@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--kernels-only | --circuit-only | --io-only | --pipelined-only |
-                           --async-only]
+                           --async-only | --dist-only | --scale-only]
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
 
@@ -154,6 +154,33 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    GBA ran (moved by its merge along the spanning tree) and its wall time
    beside phase 10's synchronous one.  Both kernels must launch on this path
    ("async": (a) and (b)).
+14. distribution — the point-sharded global BA (parallel/dist_ba.py,
+   parallel/multihost.py).  (a) On a synthesized map at the card's GBA size
+   (512 keyframes x 65536 points x 32 slots, the port of
+   __graft_entry__._synthesize_map), 10 LM iterations of PCG: BA.run, then
+   run_distributed_ba over [cuda:0] (torch.equal to BA.run's in every field)
+   and over [cuda:0] * 4 (poses within 5e-4, points within 5e-3 of it, the
+   JAX package's tolerances in tests/test_distributed.py), each timed.
+   (b) scripts/multihost_ba.py's ranks as subprocesses, each with a
+   timeout: 2 ranks on cuda:0 under gloo, then 1 rank under NCCL; their
+   poses equal within 1e-6, 32 and 64 points a rank, the camera error below
+   half its start.  (c) The port of __graft_entry__.dryrun_multichip: the
+   production GBA (_launch_gba, 4 iterations, 24 CG steps) inline on a
+   synthesized 64 x 8192 map, unsharded as this machine runs it and with
+   visible_devices giving cuda:0 twice (the sharded branch and its
+   gather): one run, none aborted, a finite map, the two within 5e-4; then
+   _run_ba_chunked's two LM phases on the problem sharded over two entries.
+   The BA has no Hamming kernel (nor a Pallas one in the JAX package), so
+   "dist" launches none.
+15. scale — scripts/run_scale_demo.run at full capacity (2048 keyframes x
+   262144 points x 16 observations, local BA 64 x 8192) over SCALE_FRAMES
+   frames of the JAX demo's street circuit (block 30): at most 2 lost, a
+   loop closed through the PCG pose graph, at least one GBA, no capacity
+   warning; prints the demo's JSON line, mapping per keyframe by thirds,
+   the frame median and mean, the loop correction and its pose graph, the
+   GBA beside phase 10's and the peak device memory.  Both kernels must
+   launch on this path ("scale").  The demo's full 700 frames run as
+   ``python -m refactored_orb_slam2_tpu_torch.scripts.run_scale_demo``.
 
 Since the fused step became one CUDA graph, every tracked frame of phases
 4-12 replays it; phase 5 and the stage lines of phases 7 and 8 run the
@@ -165,7 +192,7 @@ on a second system (frames 4-7 after the first tracked one).  Every path is
 driven with the kernels' launch counts set to 0 just before it and read
 just after ("relocalization" sums phase 9's four episodes, "loop" is
 phase 10, "io" phase 11 from its relocalization on, "pipelined" phase
-12 (c), "async" phase 13 (a) and (b)).
+12 (c), "async" phase 13 (a) and (b), "dist" phase 14, "scale" phase 15).
 ``tests/test_torch_smoke_reference.py`` (marked slow) runs the JAX package
 on the CPU over the same frames (phase 10: the circuit's) and holds the
 JAX_* constants below to what it gives.
@@ -267,6 +294,13 @@ JAX_CIRCUIT = {"lost": 0, "loop": (5, 88), "loop_frames": (6, 124), "frame": 124
                "gba_runs": 1, "ate": 0.2420207}
 CIRCUIT_FRAME_TOL = 3
 CIRCUIT_ATE_BOUND_M = 2 * JAX_CIRCUIT["ate"]
+# Phase 14 (a): the synthesized map at the card's GBA size (the capacity of
+# phase 10's map), each point seen by up to 4 keyframes spread over the arc.
+DIST_SIZE, DIST_OBS_PER_PT = (512, 65536, 32), 4
+MULTIHOST_TIMEOUT_S = 180.0
+# Phase 15: frames of the scale demo (140 a lap: 1.29 laps, phase 10's 1.27
+# laps over the same circuit period).
+SCALE_FRAMES = 180
 
 
 def rgbd_config():
@@ -2119,6 +2153,280 @@ def _async_circuit(card: str, sync_gba_ms: float | None) -> dict:
         raise AssertionError(f"async (b): ATE {ate:.6f} m, bound {CIRCUIT_ATE_BOUND_M:.6f} m")
     return run["launches"]
 
+
+# ---------------------------------------------------------------- distribution
+def synthesize_map(slam, K: int, P: int, obs_per_pt: int, spread: bool = False) -> None:
+    """Fill the system's map banks with a consistent K-keyframe, P-point
+    world (the port of ``__graft_entry__._synthesize_map``): poses on an
+    arc, each point observed by up to ``obs_per_pt`` consecutive keyframes
+    with its projection (0.3 px noise) in their uvr banks, so that the
+    production global BA can run on it without tracking a frame.  Above 64
+    keyframes they share the arc of the JAX function's 64 (1.28 rad, 9.6
+    m): its arc turns 0.02 rad a keyframe, past 10 rad at K = 512, where
+    stretches of keyframes see no point and the problem's gauge is free
+    along them, so that the LM has no one answer to hold shards to.  With
+    ``spread`` a point's observers are drawn over the whole arc instead of
+    in a row.  Near its optimum the LM's accept test compares errors an ulp
+    apart, and another order of the sums flips it now and then, which moves
+    the answer by as much as float32 resolves it there; a long chain of
+    keyframes resolves it worst (at K = 128 on the CPU, 4 shards ended
+    3.5e-4 from one in the poses with observers in a row, 2.2e-4 spread)."""
+    m = slam.map
+    Kc, N, Pc, O = m.capacity
+    assert K <= Kc and P <= Pc and obs_per_pt <= min(O, N)
+    cam = slam.cam
+    rng = np.random.default_rng(0)
+    poses = np.tile(np.eye(4, dtype=np.float32), (Kc, 1, 1))
+    step = min(1.0, 64 / K)
+    for k in range(K):
+        a = 0.02 * k * step
+        c, s = np.cos(a), np.sin(a)
+        poses[k, :3, :3] = np.asarray([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+        poses[k, 0, 3] = -0.15 * k * step
+    pts = np.zeros((Pc, 3), np.float32)
+    pts[:P] = np.stack([rng.uniform(-4, 4, P), rng.uniform(-3, 3, P), rng.uniform(4, 14, P)],
+                       axis=1)
+    obs_kf = np.full((Pc, O), -1, np.int32)
+    obs_ft = np.full((Pc, O), -1, np.int32)
+    uvr_bank = np.zeros((Kc, N, 3), np.float32)
+    feat_count = np.zeros(Kc, np.int32)
+    for p in range(P):
+        if spread:
+            kfs = np.sort(rng.choice(K, obs_per_pt, replace=False))
+        else:
+            kfs = rng.integers(0, max(K - obs_per_pt, 1)) + np.arange(obs_per_pt)
+        for o, k in enumerate(kfs.tolist()):
+            if k >= K or feat_count[k] >= N:
+                continue
+            T = poses[k]
+            pc = T[:3, :3] @ pts[p] + T[:3, 3]
+            if pc[2] < 0.2:
+                continue
+            u = cam.fx * pc[0] / pc[2] + cam.cx
+            v = cam.fy * pc[1] / pc[2] + cam.cy
+            ft = feat_count[k]
+            feat_count[k] += 1
+            uvr_bank[k, ft] = [u + rng.normal(0, 0.3), v + rng.normal(0, 0.3),
+                               u - cam.bf / pc[2]]
+            obs_kf[p, o] = k
+            obs_ft[p, o] = ft
+    ref_kf = np.zeros(Pc, np.int32)
+    ref_kf[:P] = np.where((obs_kf[:P] >= 0).any(1), np.max(obs_kf[:P], axis=1), 0)
+    parent = np.full(Kc, -1, np.int32)
+    parent[1:K] = np.arange(K - 1)
+    dev = slam.device
+    t = lambda a: torch.from_numpy(a).to(dev)
+    slam.map = m.replace(
+        kf_pose=t(poses), kf_valid=t(np.arange(Kc) < K), kf_uvr=t(uvr_bank),
+        kf_octave=torch.zeros((Kc, N), dtype=torch.int32, device=dev), kf_parent=t(parent),
+        pt_pos=t(pts), pt_valid=t(np.arange(Pc) < P), pt_obs_kf=t(obs_kf),
+        pt_obs_feat=t(obs_ft), pt_ref_kf=t(ref_kf))
+    slam.n_kf, slam.n_pt = K, P
+
+
+def _gba_problem(slam):
+    """The global BA's problem over the system's map, as ``_gba_worker``
+    builds it: every valid keyframe but the origin, which is fixed."""
+    from refactored_orb_slam2_tpu_torch.models import map_ops
+
+    K = slam.map.kf_pose.shape[0]
+    slots = torch.arange(K, device=slam.device)
+    return map_ops.build_ba_problem(slam.map, slam.map.kf_valid & (slots != 0), slots == 0,
+                                    slam.inv_sigma2_table)
+
+
+def _timed_sync(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _dist_ba(card: str) -> float:
+    """Phase 14 (a): the sharded BA in one process at the card's GBA size;
+    returns BA.run's time (ms)."""
+    import dataclasses
+
+    from refactored_orb_slam2_tpu_torch.optim import bundle_adjustment as BA
+    from refactored_orb_slam2_tpu_torch.parallel import dist_ba
+    from refactored_orb_slam2_tpu_torch.system import SlamSystem
+
+    K, P, O = DIST_SIZE
+    cfg = circuit_config()
+    cfg = dataclasses.replace(cfg, map=dataclasses.replace(
+        cfg.map, max_keyframes=K, max_points=P, max_obs_per_point=O))
+    slam = SlamSystem(cfg, device="cuda")
+    t0 = time.perf_counter()
+    synthesize_map(slam, K, P, DIST_OBS_PER_PT, spread=True)
+    prob = _gba_problem(slam)
+    print(f"dist (a) set-up: a synthesized map of {K} keyframes x {P} points x {O} slots, "
+          f"{int(prob.obs_valid.sum())} observations in the GBA's problem, in "
+          f"{time.perf_counter() - t0:.2f} s")
+    kw = dict(iters_phase1=10, iters_phase2=0, solver="pcg", n_cg=cfg.map.gba_cg_iters)
+    dev = torch.device("cuda", 0)
+    ref, ref_ms = _timed_sync(lambda: BA.run(slam.cam, prob, **kw))
+    one, one_ms = _timed_sync(lambda: dist_ba.run_distributed_ba(
+        slam.cam, prob, dist_ba.make_mesh(devices=[dev]), **kw))
+    four, four_ms = _timed_sync(lambda: dist_ba.run_distributed_ba(
+        slam.cam, prob, dist_ba.make_mesh(devices=[dev] * 4), **kw))
+    differ = [f for f, a, b in zip(BA.BAResult._fields, ref, one) if not torch.equal(a, b)]
+    d_pose = float((four.kf_poses - ref.kf_poses).abs().max())
+    d_pts = float((four.points - ref.points)[prob.point_valid].abs().max())
+    moved = float((ref.kf_poses - prob.kf_poses).abs().max())
+    print(f"dist (a): 10 LM x {kw['n_cg']} CG: BA.run {ref_ms:.1f} ms, 1 shard {one_ms:.1f} ms "
+          f"(torch.equal: {not differ}), 4 shards on one device {four_ms:.1f} ms, largest "
+          f"difference from BA.run: poses {d_pose:.3e}, points {d_pts:.3e} (bounds 5e-4, 5e-3); "
+          f"the LM moved the poses {moved:.3e}; robust error {float(ref.total_chi2):.6g} and "
+          f"{float(four.total_chi2):.6g} (host clock with synchronize; {card})")
+    if differ:
+        raise AssertionError(f"dist (a): one shard differs from BA.run in {differ}")
+    if not (d_pose <= 5e-4 and d_pts <= 5e-3 and torch.isfinite(four.kf_poses).all()
+            and torch.isfinite(four.points).all()):
+        raise AssertionError(f"dist (a): 4 shards off BA.run by {d_pose}, {d_pts}")
+    return ref_ms
+
+
+def _multihost(card: str) -> None:
+    """Phase 14 (b): the BA across processes, each rank a subprocess of its
+    own with a timeout: 2 ranks on one card under gloo, 1 under NCCL."""
+    import tempfile
+
+    from refactored_orb_slam2_tpu_torch.scripts import multihost_ba as W
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, world, backend in (("gloo", 2, "gloo"), ("nccl", 1, None)):
+            out = os.path.join(tmp, label)
+            t0 = time.perf_counter()
+            texts = W.launch(world, f"file://{tmp}/rendezvous_{label}", ["cuda:0"] * world, out,
+                             backend=backend, timeout=MULTIHOST_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            poses = [np.load(f"{out}.poses.{r}.npy") for r in range(world)]
+            points = [np.load(f"{out}.points.{r}.npy") for r in range(world)]
+            spread = max(float(np.abs(p - poses[0]).max()) for p in poses)
+            errors = [line for text in texts for line in text.splitlines()
+                      if line.startswith("camera error")]
+            print(f"dist (b) {label}: {world} rank(s) on cuda:0, points per rank "
+                  f"{[p.shape for p in points]}, poses across ranks within {spread:.1e}, "
+                  f"{errors[0]}; {wall:.1f} s with the processes' start ({card})")
+            if spread > 1e-6:
+                raise AssertionError(f"dist (b) {label}: poses differ across ranks by {spread}")
+            if any(p.shape != (64 // world, 3) for p in points):
+                raise AssertionError(f"dist (b) {label}: points {[p.shape for p in points]}")
+
+
+def _dist_gba(card: str) -> None:
+    """Phase 14 (c), the port of ``__graft_entry__.dryrun_multichip``: the
+    production GBA on a synthesized map, inline, as the card's machine runs
+    it (one device: unsharded) and with ``visible_devices`` giving cuda:0
+    twice (the sharded branch); then both LM phases of ``_run_ba_chunked``
+    on the problem sharded over two entries."""
+    from refactored_orb_slam2_tpu_torch.config import (
+        CameraConfig, MapConfig, ORBConfig, SystemConfig,
+    )
+    from refactored_orb_slam2_tpu_torch.optim import bundle_adjustment as BA
+    from refactored_orb_slam2_tpu_torch.parallel import dist_ba
+    from refactored_orb_slam2_tpu_torch.system import SlamSystem
+
+    cfg = SystemConfig(
+        sensor="stereo",
+        camera=CameraConfig(fx=450.0, fy=450.0, cx=160.0, cy=120.0, bf=45.0, width=320,
+                            height=240, fps=10),
+        orb=ORBConfig(n_features=1024, n_levels=4),
+        map=MapConfig(max_keyframes=64, max_points=8192, max_obs_per_point=8, gba_cg_iters=24),
+    )
+    dev = torch.device("cuda", 0)
+    maps = {}
+    visible = dist_ba.visible_devices
+    for label, devices in (("unsharded", None), ("2 shards", [dev, dev])):
+        slam = SlamSystem(cfg, device="cuda")
+        synthesize_map(slam, 64, 8192, 4)
+        before = slam.map.kf_pose.clone()
+        if devices is not None:
+            dist_ba.visible_devices = lambda device: devices
+        try:
+            _, ms = _timed_sync(lambda: slam._launch_gba(kf_cur=slam.n_kf - 1, iters=4))
+        finally:
+            dist_ba.visible_devices = visible
+        m = slam.map
+        drift = float((m.kf_pose - before).abs().max())
+        print(f"dist (c) production GBA, {label}: {ms:.1f} ms, gba_runs "
+              f"{slam.stats['gba_runs']}, aborted {slam.stats['gba_aborted']}, largest pose "
+              f"change {drift:.3e} ({card})")
+        if not (torch.isfinite(m.kf_pose).all() and torch.isfinite(m.pt_pos).all()):
+            raise AssertionError(f"dist (c) {label}: non-finite map")
+        if slam.stats["gba_runs"] != 1 or slam.stats["gba_aborted"] != 0 or not drift < 0.5:
+            raise AssertionError(f"dist (c) {label}: {slam.stats}, drift {drift}")
+        maps[label] = m
+    d = float((maps["unsharded"].kf_pose - maps["2 shards"].kf_pose).abs().max())
+    if d > 5e-4:
+        raise AssertionError(f"dist (c): the sharded GBA's poses {d} off the unsharded ones")
+    prob = dist_ba.shard_ba_problem(_gba_problem(slam), dist_ba.make_mesh(devices=[dev, dev]))
+    (result, stopped), ms = _timed_sync(lambda: slam._run_ba_chunked(
+        prob, 2, 2, solver="pcg", n_cg=cfg.map.gba_cg_iters, chunk=2))
+    finite = all(torch.isfinite(x).all() for x in result.kf_poses + result.points)
+    print(f"dist (c): the sharded and the unsharded GBA's poses within {d:.3e}; "
+          f"_run_ba_chunked(2 + 2 iterations, outliers between) over 2 shards {ms:.1f} ms, "
+          f"{len(result.points)} point slices, finite {finite} ({card})")
+    if stopped or not finite or not isinstance(prob, BA.ShardedBAProblem):
+        raise AssertionError("dist (c): the sharded two-phase schedule failed")
+
+
+def _dist(card: str) -> tuple:
+    """Phase 14: distribution.  Returns the path's launches (the BA runs no
+    Hamming kernel, as in the JAX package: none is expected) and BA.run's
+    time at the card's GBA size."""
+    from refactored_orb_slam2_tpu_torch.ops import cuda_hamming
+
+    t_phase = time.perf_counter()
+    cuda_hamming.reset_launches()
+    gba_ms = _dist_ba(card)
+    _multihost(card)
+    _dist_gba(card)
+    launches = dict(cuda_hamming.launches)
+    print(f"dist: phase 14 took {time.perf_counter() - t_phase:.1f} s (host clock; {card}); "
+          f"launches {launches}")
+    return launches, gba_ms
+
+
+def _scale(card: str, sync_gba_ms: float | None) -> dict:
+    """Phase 15: the scale demo at full capacity through
+    ``scripts/run_scale_demo.run``.  Returns the run's launches."""
+    from refactored_orb_slam2_tpu_torch.ops import cuda_hamming
+    from refactored_orb_slam2_tpu_torch.scripts import run_scale_demo
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_hamming.reset_launches()
+    out = run_scale_demo.run(SCALE_FRAMES, "cuda")
+    launches = dict(cuda_hamming.launches)
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    print(f"scale: {json.dumps(out)}")
+    mt = out["mapping_ms_per_kf"]
+    print(f"scale: {out['frames']} frames ({SCALE_FRAMES / run_scale_demo.FRAMES_PER_LAP:.2f} "
+          f"laps), lost {out['lost']}, n_kf {out['keyframes']}, n_pt {out['points']}, mapping "
+          f"per keyframe by thirds {mt['first_third']} / {mt['middle_third']} / "
+          f"{mt['last_third']} ms, frame median {out['frame_ms']['median']} ms and mean "
+          f"{out['frame_ms']['mean']} ms (host clock, each call as its caller waits); loop "
+          f"closed {out['loop_closed']}, _correct_loop {out['correct_loop_ms']} ms with its "
+          f"{out['pose_graph_solver']} pose graph {out['pose_graph_ms']} ms; the GBA "
+          f"{out['gba_ms']} ms at 2048 x 262144 x 16"
+          + (f" beside phase 10's {sync_gba_ms:.1f} ms at 512 x 65536 x 32" if sync_gba_ms
+             else " (phase 10 did not run in this call)")
+          + f"; peak device memory {peak_mib:.1f} MiB; launches {launches}; phase 15 took "
+          f"{time.perf_counter() - t_phase:.1f} s ({card})")
+    if out["lost"] > 2:
+        raise AssertionError(f"scale: {out['lost']} frames lost")
+    if not out["loop_closed"] or out["gba_runs"] < 1:
+        raise AssertionError(f"scale: loop closed {out['loop_closed']}, {out['gba_runs']} GBAs")
+    if out["pose_graph_solver"] != "pcg" or not out["pose_graph_ms"]:
+        raise AssertionError(f"scale: pose graph {out['pose_graph_solver']}, "
+                             f"{out['pose_graph_ms']}")
+    if out["capacity_warnings"]:
+        raise AssertionError(f"scale: capacity warnings {out['capacity_warnings']}")
+    return launches
+
+
 def _side_stream_check(wargs, band, margs) -> int:
     """Each kernel launched from a second thread under a stream of its own
     (as the async mode's workers launch them), against its plain version;
@@ -2283,8 +2591,10 @@ def _launch_rows(kernels: list, by_path: dict, reloc: list) -> None:
     rescue-search comparisons in its error; raises if a kernel was not
     launched on a path that must launch it."""
     # localization-only mode freezes the map, so it has no masked search; a
-    # relocalization needs one only for a rescue round or a new keyframe
-    exempt = {("localization", "hamming_best2"), ("relocalization", "hamming_best2")}
+    # relocalization needs one only for a rescue round or a new keyframe; the
+    # sharded BA (phase 14) has no Hamming kernel, as in the JAX package
+    exempt = {("localization", "hamming_best2"), ("relocalization", "hamming_best2"),
+              ("dist", "hamming_best2"), ("dist", "window_match")}
     for row in kernels:
         row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())
@@ -2319,6 +2629,14 @@ def main(mode: str = "") -> None:
         launches, _ = _circuit(card)
         for row in kernels:
             row["launches"] = launches[row["name"]]
+        print(json.dumps({"kernels": kernels}))
+        print(card)
+        return
+
+    if mode in ("--dist-only", "--scale-only"):
+        by_path = ({"dist": _dist(card)[0]} if mode == "--dist-only"
+                   else {"scale": _scale(card, None)})
+        _launch_rows(kernels, by_path, [])
         print(json.dumps({"kernels": kernels}))
         print(card)
         return
@@ -2409,6 +2727,9 @@ def main(mode: str = "") -> None:
     # ---- 13 (b). the street circuit in async mode: the GBA on its thread
     circuit = _async_circuit(card, gba_ms)
     by_path["async"] = {name: room[name] + circuit[name] for name in room}
+    # ---- 14. distribution; 15. the scale demo at full capacity
+    by_path["dist"], _ = _dist(card)
+    by_path["scale"] = _scale(card, gba_ms)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     by_path["relocalization"] = {name: sum(r["launches"][name] for r in reloc)
@@ -2427,9 +2748,10 @@ if __name__ == "__main__":
     # null) and the card, without the device line of a whole run;
     # --circuit-only runs phases 1-3 and 10, --io-only phases 1-4 and 11,
     # --pipelined-only phases 1-4 and 12, --async-only phases 1-4 and 13,
-    # and each prints the same two lines
-    if sys.argv[1:] not in ([], ["--kernels-only"], ["--circuit-only"], ["--io-only"],
-                            ["--pipelined-only"], ["--async-only"]):
-        _fail("usage: python3 chip_smoke.py [--kernels-only | --circuit-only | --io-only | "
-              f"--pipelined-only | --async-only] (got {sys.argv[1:]})")
+    # --dist-only phases 1-3 and 14, --scale-only phases 1-3 and 15, and each
+    # prints the same two lines
+    modes = ("--kernels-only", "--circuit-only", "--io-only", "--pipelined-only",
+             "--async-only", "--dist-only", "--scale-only")
+    if sys.argv[1:] not in [[]] + [[m] for m in modes]:
+        _fail(f"usage: python3 chip_smoke.py [{' | '.join(modes)}] (got {sys.argv[1:]})")
     main(sys.argv[1] if sys.argv[1:] else "")

@@ -115,6 +115,7 @@ from .ops.orb import level_quotas
 from .optim import bundle_adjustment as BA
 from .optim import pose_graph as PG
 from .optim.pose_opt import optimize_pose
+from .parallel import dist_ba
 from .place.keyframe_db import KeyFrameDB, detect_reloc_candidates
 from .place.vocab import load_vocabulary, train_vocabulary
 from .solvers import epnp
@@ -1558,13 +1559,14 @@ class SlamSystem:
         end it early (g2o's force-stop flag: the local BA keeps its partial
         progress, Optimizer.cc:650-694; the GBA drops it, LoopClosing.cc:
         631); in async mode each chunk is waited for first, so that the
-        flag is polled against the device's progress.  Returns (BAResult,
-        stopped early)."""
+        flag is polled against the device's progress.  ``prob`` may be a
+        ``BA.ShardedBAProblem`` (the result is then per shard).  Returns
+        (BAResult, stopped early)."""
         stopped = False
 
         def phase(n, poses, points):
             nonlocal stopped
-            lam = torch.full((), 1e-4, dtype=torch.float32, device=poses.device)
+            lam = BA.initial_damping(prob)
             done = 0
             while done < n and not stopped:
                 k = min(chunk, n - done)
@@ -1580,10 +1582,11 @@ class SlamSystem:
 
         poses, points = phase(iters1, prob.kf_poses, prob.points)
         if iters2 > 0 and not stopped:
-            prob = prob._replace(obs_valid=BA.classify_outliers(self.cam, prob, poses, points))
+            prob = BA.with_obs_valid(prob, BA.classify_outliers(self.cam, prob, poses, points))
             poses, points = phase(iters2, poses, points)
         final_valid = BA.classify_outliers(self.cam, prob, poses, points)
-        zero = torch.zeros((), dtype=torch.float32, device=poses.device)
+        zero = BA.per_shard(prob, lambda s: torch.zeros((), dtype=torch.float32,
+                                                        device=s.kf_poses.device))
         return BA.BAResult(kf_poses=poses, points=points, obs_valid=final_valid,
                            total_chi2=zero), stopped
 
@@ -1626,11 +1629,18 @@ class SlamSystem:
         """The GBA over ``snapshot`` in chunks of 2 LM iterations; dropped
         (``stats["gba_aborted"]``) when stopped or when the epoch moved, else
         merged, in async mode under the writer lock after a second look at
-        the epoch."""
+        the epoch.  With more than one device visible the problem is cut
+        along the point axis over all of them (``parallel/dist_ba.py``), as
+        the JAX package shards it whenever it sees more than one chip, and
+        the result is gathered back on this thread's stream before the
+        merge."""
         K = snapshot.kf_pose.shape[0]
         slots = torch.arange(K, device=self.device)
         prob = map_ops.build_ba_problem(snapshot, snapshot.kf_valid & (slots != 0),
                                         slots == 0, self.inv_sigma2_table)
+        devices = dist_ba.visible_devices(self.device)
+        if len(devices) > 1:
+            prob = dist_ba.shard_ba_problem(prob, dist_ba.make_mesh(devices=devices))
         result, stopped = self._run_ba_chunked(
             prob, iters, 0, solver="pcg", n_cg=self.cfg.map.gba_cg_iters, chunk=2,
             should_stop=lambda: self._stop_gba or self.gba_epoch != epoch)
@@ -1638,6 +1648,8 @@ class SlamSystem:
         if stopped or self.gba_epoch != epoch:
             self.stats["gba_aborted"] += 1
             return
+        if len(devices) > 1:
+            result = dist_ba.gather(result, self.device)
         with self._map_lock():
             if self.gba_epoch != epoch:      # a second look under the lock
                 self.stats["gba_aborted"] += 1

@@ -487,3 +487,36 @@ def test_fused_graph_captured_while_the_mapping_worker_is_busy(cuda):
         assert slam.track_rgbd_device(*frames[i], i / 30.0) is not None
     assert slam.wait_mapping_idle(timeout=300) and done == [0]
     slam.shutdown()
+
+
+# ------------------------------------------------------------- distribution
+def test_two_shards_on_card_match_one(cuda):
+    """``run_distributed_ba`` over cuda:0 twice against the one-shard run,
+    which is ``torch.equal`` to ``BA.run``, on the JAX bench's problem."""
+    from refactored_orb_slam2_tpu_torch.geometry.camera import Camera
+    from refactored_orb_slam2_tpu_torch.optim import bundle_adjustment as BA
+    from refactored_orb_slam2_tpu_torch.parallel.dist_ba import make_mesh, run_distributed_ba
+    from refactored_orb_slam2_tpu_torch.scripts.bench_dist_ba import make_problem
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cam = Camera.create(500.0, 500.0, 320.0, 240.0, bf=40.0)
+    prob = make_problem(8, 1024, 4, device=cuda)
+    ref = BA.run(cam, prob, iters_phase1=3, iters_phase2=0, solver="pcg", n_cg=80)
+    one = run_distributed_ba(cam, prob, make_mesh(devices=[cuda]), iters_phase1=3)
+    assert all(torch.equal(a, b) for a, b in zip(ref, one))
+    two = run_distributed_ba(cam, prob, make_mesh(devices=[cuda] * 2), iters_phase1=3)
+    assert two.points.is_cuda and two.points.shape == prob.points.shape
+    assert float((two.kf_poses - one.kf_poses).abs().max()) <= 5e-4
+    assert float((two.points - one.points).abs().max()) <= 5e-3
+    assert float((one.kf_poses - prob.kf_poses).abs().max()) > 1e-4      # the LM moved
+
+
+def test_multihost_one_rank_under_nccl(cuda, tmp_path):
+    """One rank of ``scripts/multihost_ba.py`` under NCCL (a subprocess with
+    a timeout): the camera error halves, the rank holds all 64 points."""
+    from refactored_orb_slam2_tpu_torch.scripts import multihost_ba as W
+
+    out = tmp_path / "out"
+    W.launch(1, f"file://{tmp_path / 'rendezvous'}", ["cuda:0"], str(out), timeout=180.0)
+    assert np.load(f"{out}.points.0.npy").shape == (64, 3)
+    assert np.isfinite(np.load(f"{out}.poses.0.npy")).all()

@@ -226,7 +226,9 @@ def test_port_imports_no_jax():
                    "geometry.triangulation", "place.vocab", "place.keyframe_db",
                    "solvers.epnp", "geometry.sim3", "solvers.horn_sim3", "optim.pose_graph",
                    "backend.loop_closing", "io.checkpoint", "io.datasets", "io.viz",
-                   "scripts.run_dataset", "bench"):
+                   "scripts.run_dataset", "bench", "parallel.dist_ba", "parallel.multihost",
+                   "scripts.multihost_ba", "scripts.run_scale_demo", "scripts.bench_dist_ba",
+                   "scripts.bench_pose_graph"):
         assert f"refactored_orb_slam2_tpu_torch.{module}" in names
     code = (
         "import importlib, sys\n"
