@@ -1,6 +1,10 @@
 """Dataset loaders: TUM RGB-D, KITTI odometry, EuRoC MAV (a copy of the JAX
 package's io/datasets.py, which imports nothing of JAX; the code below the
-docstring is the original's, held equal by tests/test_torch_config.py).
+docstring is the original's except for the image reading and the EuRoC
+rectification, which run on the port's own PNG codec and numpy instead of
+cv2. tests/test_torch_config.py holds the rest equal word for word and
+names the rewritten functions; tests/test_torch_datasets.py holds the
+readers to the JAX package's).
 
 Replaces the example drivers' ad-hoc loaders (reference:
 mono_tum.cc:150-185 LoadImages + association logic, stereo_kitti.cc,
@@ -8,9 +12,11 @@ stereo_euroc.cc:70-115 incl. stereo rectification).  Each loader yields
 (timestamp, frame-data) tuples of host arrays ready for
 SlamSystem.track_*.
 
-Images load through cv2 at the host boundary (the reference uses
-cv::imread), imported inside the readers, so importing this module needs
-only numpy.
+Images load through ``io/png.py`` at the host boundary (the reference uses
+cv::imread; ``png.imread_gray`` gives what cv2's grey read gives), and the
+EuRoC rectification is cv::initUndistortRectifyMap for the radtan model
+and a bilinear cv::remap with a zero border, in numpy
+(``undistort_rectify_map``, ``remap_linear``).
 """
 
 from __future__ import annotations
@@ -20,23 +26,65 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from . import png
+
 
 def _imread_gray(path: str) -> np.ndarray:
-    import cv2
-
-    img = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
-    if img is None:
-        raise FileNotFoundError(path)
-    return img.astype(np.float32)
+    return png.imread_gray(path).astype(np.float32)
 
 
 def _imread_depth(path: str, factor: float) -> np.ndarray:
-    import cv2
+    return png.read_png(path).astype(np.float32) / factor
 
-    d = cv2.imread(path, cv2.IMREAD_UNCHANGED)
-    if d is None:
-        raise FileNotFoundError(path)
-    return d.astype(np.float32) / factor
+
+def undistort_rectify_map(K, D, R, P, size):
+    """cv::initUndistortRectifyMap for the radtan model (k1, k2, p1, p2[,
+    k3]) with CV_32F maps: for every pixel (u, v) of the rectified image of
+    ``size`` = (width, height), where it lies in the raw image. The same
+    double-precision steps as OpenCV, so the maps are equal to its."""
+    w, h = size
+    k1, k2, p1, p2, k3 = (list(np.ravel(D)) + [0.0] * 5)[:5]
+    ir = np.linalg.inv(np.asarray(P, np.float64)[:3, :3] @ np.asarray(R, np.float64))
+    v, u = np.mgrid[0:h, 0:w].astype(np.float64)
+    x_h = ir[0, 0] * u + ir[0, 1] * v + ir[0, 2]
+    y_h = ir[1, 0] * u + ir[1, 1] * v + ir[1, 2]
+    inv_w = 1.0 / (ir[2, 0] * u + ir[2, 1] * v + ir[2, 2])
+    x, y = x_h * inv_w, y_h * inv_w
+    x2, y2, xy2 = x * x, y * y, 2.0 * x * y
+    r2 = x2 + y2
+    kr = 1.0 + ((k3 * r2 + k2) * r2 + k1) * r2
+    xd = x * kr + p1 * xy2 + p2 * (r2 + 2.0 * x2)
+    yd = y * kr + p1 * (r2 + 2.0 * y2) + p2 * xy2
+    K = np.asarray(K, np.float64)
+    return ((K[0, 0] * xd + K[0, 2]).astype(np.float32),
+            (K[1, 1] * yd + K[1, 2]).astype(np.float32))
+
+
+def remap_linear(img: np.ndarray, map_x: np.ndarray, map_y: np.ndarray) -> np.ndarray:
+    """cv::remap(img, map_x, map_y, INTER_LINEAR) of a float32 image with
+    the default constant zero border: bilinear at the maps' float
+    coordinates (OpenCV 5.0 does not quantize them to 1/32 px for a float32
+    image), a neighbour outside the image reading 0. Along x, then y, each
+    step a fused multiply-add ``p + f * (q - p)`` as OpenCV's vector code
+    does it: the product and sum in float64, one rounding to float32."""
+    h, w = img.shape
+    x0f, y0f = np.floor(map_x), np.floor(map_y)
+    fx, fy = map_x - x0f, map_y - y0f
+    x0, y0 = x0f.astype(np.int64), y0f.astype(np.int64)
+    pad = np.zeros((h + 2, w + 2), np.float32)
+    pad[1:-1, 1:-1] = img
+
+    def at(yy, xx):
+        inside = (yy >= -1) & (yy <= h) & (xx >= -1) & (xx <= w)
+        val = pad[np.clip(yy + 1, 0, h + 1), np.clip(xx + 1, 0, w + 1)]
+        return np.where(inside, val, np.float32(0.0))
+
+    def lerp(p, q, f):
+        return (p.astype(np.float64) + f.astype(np.float64) * (q - p)).astype(np.float32)
+
+    p00, p01 = at(y0, x0), at(y0, x0 + 1)
+    p10, p11 = at(y0 + 1, x0), at(y0 + 1, x0 + 1)
+    return lerp(lerp(p00, p01, fx), lerp(p10, p11, fx), fy)
 
 
 @dataclass
@@ -140,8 +188,6 @@ class EurocStereoSequence:
     rect: dict | None = None  # keys LEFT.K, LEFT.D, LEFT.R, LEFT.P, RIGHT.* (numpy)
 
     def _rect_maps(self, shape):
-        import cv2
-
         r = self.rect
         h, w = shape
         m = {}
@@ -150,14 +196,10 @@ class EurocStereoSequence:
             D = r[f"{side}.D"]
             R = r[f"{side}.R"]
             P = r[f"{side}.P"]
-            m[side] = cv2.initUndistortRectifyMap(
-                K, D, R, P[:3, :3], (w, h), cv2.CV_32F
-            )
+            m[side] = undistort_rectify_map(K, D, R, P[:3, :3], (w, h))
         return m
 
     def __iter__(self):
-        import cv2
-
         cam0 = os.path.join(self.root, "cam0", "data")
         cam1 = os.path.join(self.root, "cam1", "data")
         names = sorted(os.listdir(cam0))
@@ -174,8 +216,8 @@ class EurocStereoSequence:
             if self.rect is not None:
                 if maps is None:
                     maps = self._rect_maps(left.shape)
-                left = cv2.remap(left, *maps["LEFT"], cv2.INTER_LINEAR)
-                right = cv2.remap(right, *maps["RIGHT"], cv2.INTER_LINEAR)
+                left = remap_linear(left, *maps["LEFT"])
+                right = remap_linear(right, *maps["RIGHT"])
             yield t, left, right
 
 

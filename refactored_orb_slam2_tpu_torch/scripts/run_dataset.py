@@ -17,7 +17,8 @@ Calibration comes from --preset (auto-chosen per mode: TUM variant from
 --variant, KITTI group from the sequence number in --data) or from a
 reference-format --settings YAML.  The system runs on the GPU; --cpu runs
 it on the CPU instead (there is no fallback from one to the other).
-Reading PNG sequences needs cv2, and --overlay-every matplotlib.  --coop
+PNG sequences are read by the port's own codec (io/png.py, no cv2);
+--overlay-every needs matplotlib.  --coop
 runs cooperative mapping with pipelined dispatch at --depth, --pipelined
 pipelined dispatch at depth 1, --async-mapping local mapping and loop
 closing on worker threads (the JAX driver's flags).
@@ -135,7 +136,9 @@ def track_frames(slam, frames, *, max_frames: int | None = None,
     return times
 
 
-def main(argv=None):
+def main(argv=None) -> dict:
+    """Run the driver; prints its lines and returns the summary of its last
+    (JSON) line with the mean frame time, n_kf and n_pt added."""
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("mode", choices=MODES)
@@ -212,11 +215,14 @@ def main(argv=None):
     if args.out_kf:
         slam.export_keyframe_trajectory_tum(args.out_kf)
         print(f"keyframe trajectory saved to {args.out_kf}")
-    print(json.dumps({
+    summary = {
         "mode": args.mode, "frames": n,
         "median_track_ms": float(np.median(times_s) * 1e3) if n else None,
         "fps": float(1.0 / np.mean(times_s)) if n else None,
-    }))
+    }
+    print(json.dumps(summary))
+    return dict(summary, mean_track_ms=float(np.mean(times_s) * 1e3) if n else None,
+                n_kf=slam.n_kf, n_pt=slam.n_pt)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
-"""Raycast renderer for rendered test and smoke fixtures (port of the parts
-of utils/world3d.py that the room fixture and the street circuit use:
-RGB-D, stereo pairs and monocular images).
+"""Raycast renderer for rendered test and smoke fixtures (port of
+utils/world3d.py: the room, the street circuit and the machine hall with
+their trajectories; RGB-D, stereo pairs and monocular images).
 
 The scene and trajectory builders are numpy and produce the same arrays as
 the JAX module's; the raycaster is the same ray/plane arithmetic and
@@ -355,6 +355,19 @@ def scene_street(seed=23, block=60.0, road_w=14.0) -> World3D:
 
 
 
+def scene_hall(seed=31) -> World3D:
+    """EuRoC-like machine hall: 14x10x6 m interior with large equipment."""
+    rng = np.random.default_rng(seed)
+    surfs = box_surfaces([0, 0, 3.0], [14.0, 10.0, 6.0], seed=seed * 100, inward=True)
+    for i in range(7):
+        c = [rng.uniform(-5, 5), rng.uniform(-3.5, 3.5), rng.uniform(0.5, 1.2)]
+        s = [rng.uniform(1.0, 2.6), rng.uniform(1.0, 2.2), rng.uniform(1.0, 2.4)]
+        if abs(c[0]) < 2.2 and abs(c[1]) < 1.6:
+            c[0] = np.sign(c[0] + 1e-3) * 3.0   # keep flight volume clear
+        surfs += box_surfaces(c, s, seed=seed * 100 + 9 * (i + 1), albedo=0.9)
+    return World3D(surfaces=surfs)
+
+
 # -------------------------------------------------------------- trajectories
 def _look_at(eye, target, up):
     """World->camera pose (Tcw) looking from eye toward target
@@ -446,4 +459,25 @@ def traj_street_loop(n_frames, block=60.0, road_w=14.0, seed=7, smooth=45,
             fwd = np.asarray([1.0, 0, 0])
         eye = [px[i], py[i], z]
         poses.append(_look_at(eye, list(np.asarray(eye) + fwd * 5), [0, 0, 1]))
+    return np.stack(poses).astype(np.float64)
+
+
+def traj_hall_ellipse(n_frames, seed=9):
+    """MAV ellipse with height oscillation, closing the circuit (EuRoC
+    MH-01 style)."""
+    ang = np.linspace(0, 2 * np.pi, n_frames)
+    ex = 3.6 * np.cos(ang)
+    ey = 2.4 * np.sin(ang)
+    ez = 1.6 + 0.5 * np.sin(2 * ang) + 0.1 * _smooth_noise(n_frames, 1.0, seed=seed)
+    poses = []
+    for i in range(n_frames):
+        j = (i + 2) % n_frames
+        fwd = np.asarray([ex[j] - ex[i], ey[j] - ey[i], 0.25 * (ez[j] - ez[i])])
+        n = np.linalg.norm(fwd)
+        if n < 1e-9:
+            fwd = np.asarray([1.0, 0, 0])
+        else:
+            fwd = fwd / n
+        eye = np.asarray([ex[i], ey[i], ez[i]])
+        poses.append(_look_at(eye, eye + fwd * 4.0, [0, 0, 1]))
     return np.stack(poses).astype(np.float64)

@@ -56,6 +56,8 @@ def _assert_equal_to_plain(got, ref, n1):
     (512, 1024, (60.0, 60.0), (-1, 0), 1.0),      # JAX run_selfcheck shape
     (256, 384, (30.0, 120.0), (-1, 1), 0.9),      # JAX run_golden shape
     (4096, 1000, (4.0, 20.0), (-1, 0), 0.9),      # the tracking shape
+    (4096, 2000, (2.5, 14.4), (-1, 0), 0.9),      # the KITTI preset's (2000 slots)
+    (4096, 800, (2.5, 14.4), (-1, 0), 0.9),       # run_synthetic's (800 slots)
     (70, 33, (50.0, 300.0), (-2, 2), 0.8),        # ragged edges on both sides
 ])
 def test_window_match_kernel_equals_plain(cuda, n1, n2, radius, band, p_valid):
@@ -120,6 +122,10 @@ def _masked_case(seed, n1, n2, density, device):
 @pytest.mark.parametrize("n1,n2,density", [
     (2048, 1000, 0.02),      # the fuse shape
     (1000, 1000, 0.05),      # the triangulation shape
+    (2048, 2000, 0.02),      # the KITTI preset's fuse
+    (2000, 2000, 0.05),      # its triangulation, stereo and rescue
+    (2048, 800, 0.02),       # run_synthetic's fuse
+    (800, 800, 0.05),        # its triangulation and stereo
     (1000, 1500, 0.3),       # a dense mask
     (777, 1031, 0.5),        # ragged edges on both sides
     (5, 3, 0.5),             # fewer rows than a block, fewer columns than a warp

@@ -3,7 +3,13 @@
 - The six readers of ``refactored_orb_slam2_tpu_torch/io/datasets.py``
   against the JAX package's on TUM, KITTI and EuRoC layouts written with
   cv2 (``tests/test_datasets.py``'s writers): the same timestamps, the
-  arrays equal; ``run_sequence`` makes the same calls.
+  arrays equal; ``run_sequence`` makes the same calls. The port reads
+  PNGs with its own codec (``io/png.py``) and rectifies EuRoC frames in
+  numpy, so the EuRoC stereo reader with rectification is held to the JAX
+  one (cv2's initUndistortRectifyMap and remap) on the 752x480 camera too:
+  the maps and the rectified frames equal (tolerance 0; the largest
+  difference seen is 0, as OpenCV's vector code rounds once per
+  multiply-add, which ``remap_linear`` repeats).
 - ``python -m refactored_orb_slam2_tpu_torch.scripts.run_dataset rgbd_tum
   --cpu`` on a short TUM sequence written from the ``tests/test_torch_
   sequence.py`` scenario (320x240, 500 features, 4 levels, settings YAML):
@@ -71,6 +77,51 @@ def test_reader_equals_the_reference(tmp_path, name):
         for x, y in zip(a[1:], b[1:]):
             assert x.dtype == y.dtype == np.float32
             np.testing.assert_array_equal(x, y)
+
+
+def test_rectifying_reader_equals_the_reference_at_euroc_size(tmp_path):
+    """Two 752x480 frame pairs (smooth ramps under noise, so the bilinear
+    weights matter) through the EuRoC stereo reader with the preset's
+    rectification: the port's equal to the JAX package's, both readers'
+    left and right images, and the port's maps equal to cv2's."""
+    rng = np.random.default_rng(11)
+    yy, xx = np.mgrid[0:480, 0:752]
+    for cam in ("cam0", "cam1"):
+        os.makedirs(tmp_path / cam / "data")
+        for i in range(2):
+            img = (xx * 0.21 + yy * 0.13 * (i + 1) + rng.normal(0, 20, xx.shape)) % 256
+            cv2.imwrite(str(tmp_path / cam / "data" / f"{1403636579763555584 + i * 50_000_000}.png"),
+                        img.astype(np.uint8))
+    j = list(JD.EurocStereoSequence(str(tmp_path), rect=JP.EUROC_RECTIFICATION))
+    t = list(TD.EurocStereoSequence(str(tmp_path), rect=TP.EUROC_RECTIFICATION))
+    assert len(t) == len(j) == 2
+    for a, b in zip(t, j):
+        assert a[0] == b[0]
+        for x, y in zip(a[1:], b[1:]):
+            assert x.dtype == y.dtype == np.float32 and x.shape == (480, 752)
+            assert (x == 0).mean() < 0.1                  # the border is a thin band
+            np.testing.assert_array_equal(x, y)
+    r = TP.EUROC_RECTIFICATION
+    for side in ("LEFT", "RIGHT"):
+        args = (r[f"{side}.K"], r[f"{side}.D"], r[f"{side}.R"], r[f"{side}.P"][:3, :3])
+        for got, ref in zip(TD.undistort_rectify_map(*args, (752, 480)),
+                            cv2.initUndistortRectifyMap(*args, (752, 480), cv2.CV_32F)):
+            assert got.dtype == ref.dtype == np.float32
+            np.testing.assert_array_equal(got, ref)
+
+
+def test_remap_linear_equals_cv2_at_the_border():
+    """Coordinates on, near and outside every edge (a neighbour outside
+    reads 0), at random fractions: equal to cv2.remap's float32 result."""
+    rng = np.random.default_rng(12)
+    img = rng.uniform(0, 255, (30, 40)).astype(np.float32)
+    mx = rng.uniform(-2.0, 42.0, (50, 60)).astype(np.float32)
+    my = rng.uniform(-2.0, 32.0, (50, 60)).astype(np.float32)
+    mx[0, :8] = [-1.0, -0.5, 0.0, 39.0, 39.5, 40.0, 0.25, 38.75]
+    ref = cv2.remap(img, mx, my, cv2.INTER_LINEAR)
+    got = TD.remap_linear(img, mx, my)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, ref)
 
 
 class _Recorder:

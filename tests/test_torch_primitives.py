@@ -217,8 +217,9 @@ def test_window_and_octave_band_masks_match_jax():
 def test_port_imports_no_jax():
     """Every module of the port imports in a fresh interpreter without
     pulling in jax or any module of the JAX package, nor cv2 or matplotlib
-    (the card's machine has neither: the dataset readers and the figures
-    import them inside their functions)."""
+    (the card's machine has neither: the dataset readers and the fixture
+    writer use the port's own PNG codec, ``io/png.py``, and the figures
+    import matplotlib inside their functions)."""
     import refactored_orb_slam2_tpu_torch as pkg
 
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -228,7 +229,8 @@ def test_port_imports_no_jax():
                    "backend.loop_closing", "io.checkpoint", "io.datasets", "io.viz",
                    "scripts.run_dataset", "bench", "parallel.dist_ba", "parallel.multihost",
                    "scripts.multihost_ba", "scripts.run_scale_demo", "scripts.bench_dist_ba",
-                   "scripts.bench_pose_graph"):
+                   "scripts.bench_pose_graph", "io.png", "scripts.make_fixture",
+                   "scripts.run_synthetic", "utils.synthetic"):
         assert f"refactored_orb_slam2_tpu_torch.{module}" in names
     code = (
         "import importlib, sys\n"

@@ -32,6 +32,10 @@ of it in the global BA over all 65536 x 32 observation slots.
 """
 
 import dataclasses
+import json
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -246,3 +250,61 @@ def test_jax_reference_run_gives_the_smoke_constant(sensor):
         assert abs(err - expect[1]) <= max(0.05 * err, 1e-4), (path, err)
         if path == "localization":
             assert (slam.n_kf, slam.n_pt) == map_size
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", sorted(chip_smoke.FIXTURE_RUNS))
+def test_jax_reference_fixture(tmp_path, name):
+    """Phase 16's bounds: the port's fixture writer on the CPU writes the
+    first ``N_FIXTURE`` frames of ``name``, the JAX package's driver
+    (``scripts/run_dataset.py``, cv2 readers, JAX on the CPU) runs them in
+    BASELINE.md's mode and ``scripts/evaluate.py`` scores its trajectory;
+    ``chip_smoke.JAX_FIXTURE[name]`` holds the poses it wrote and the ATE
+    (within 5%)."""
+    flags, seq, gt = chip_smoke.FIXTURE_RUNS[name]
+    root = str(tmp_path / name)
+    chip_smoke.write_fixture(name, root, chip_smoke.N_FIXTURE, "cpu")
+    out = str(tmp_path / "traj.txt")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    run = subprocess.run([sys.executable, os.path.join(REPO, "scripts", "run_dataset.py"),
+                          *flags, "--data", os.path.join(root, seq), "--cpu", "--out", out],
+                         capture_output=True, text=True, env=env, cwd=REPO, timeout=7200)
+    assert run.returncode == 0, run.stderr[-3000:]
+    ev = subprocess.run([sys.executable, os.path.join(REPO, "scripts", "evaluate.py"),
+                         "--est", out, "--gt", os.path.join(root, gt), "--json"],
+                        capture_output=True, text=True, timeout=300)
+    assert ev.returncode == 0, ev.stderr
+    r = json.loads(ev.stdout)
+    with open(out) as f:
+        poses = sum(1 for line in f if line.strip() and not line.startswith("#"))
+    print(f"JAX on the CPU, {name}, {chip_smoke.N_FIXTURE} frames ({' '.join(flags)}): "
+          f"{poses} poses written, ATE {r['ate_rmse_m']:.7f} m over {r['poses']} associated; "
+          f"{run.stdout.strip().splitlines()[-1]}")
+    ref = chip_smoke.JAX_FIXTURE[name]
+    assert poses == ref["frames"]
+    assert abs(r["ate_rmse_m"] - ref["ate"]) <= 0.05 * ref["ate"]
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("sensor", ["rgbd", "stereo"])
+def test_jax_reference_synthetic(tmp_path, sensor):
+    """Phase 16 (e)'s bounds: the JAX package's ``scripts/run_synthetic.py``
+    on the CPU, ``chip_smoke.N_SYNTHETIC`` frames at its defaults;
+    ``chip_smoke.JAX_SYNTHETIC[sensor]`` holds the frames lost and the ATE
+    (within 5%)."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    run = subprocess.run([sys.executable, os.path.join(REPO, "scripts", "run_synthetic.py"),
+                          "--cpu", "--sensor", sensor, "--frames", str(chip_smoke.N_SYNTHETIC),
+                          "--out", str(tmp_path / "run")],
+                         capture_output=True, text=True, env=env, cwd=REPO, timeout=3600)
+    assert run.returncode == 0, run.stderr[-3000:]
+    lines = run.stdout.strip().splitlines()
+    print(f"JAX on the CPU, run_synthetic {sensor}: " + " | ".join(lines[-4:-1]))
+    lost = int(lines[-4].split("lost=")[1].split()[0])
+    ate = float(lines[-2].split()[2])
+    ref = chip_smoke.JAX_SYNTHETIC[sensor]
+    assert lost == ref["lost"]
+    assert abs(ate - ref["ate"]) <= 0.05 * ref["ate"]

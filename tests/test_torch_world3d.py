@@ -146,3 +146,35 @@ def test_street_circuit_stereo_frames_match_jax():
         assert np.abs(tl - tr).mean() > 1.0
         np.testing.assert_array_equal(dl.numpy(), np.clip(tl, 0, 255).astype(np.uint8))
         np.testing.assert_array_equal(dr.numpy(), np.clip(tr, 0, 255).astype(np.uint8))
+
+
+@pytest.mark.parametrize("seed", [31, 7])
+def test_scene_hall_surfaces_identical(seed):
+    js, ts = JW.scene_hall(seed=seed), TW.scene_hall(seed=seed)
+    assert len(js.surfaces) == len(ts.surfaces) == 48
+    for a, b in zip(js.surfaces, ts.surfaces):
+        for name in ("p0", "eu", "ev", "normal"):
+            np.testing.assert_array_equal(getattr(b, name), getattr(a, name))
+        assert (a.seed, a.albedo) == (b.seed, b.albedo)
+
+
+def test_traj_hall_ellipse_identical():
+    for n, seed in ((400, 31), (500, 31), (120, 9), (3, 2)):
+        np.testing.assert_array_equal(TW.traj_hall_ellipse(n, seed=seed),
+                                      JW.traj_hall_ellipse(n, seed=seed))
+
+
+def test_hall_stereo_frame_matches_jax():
+    """Frame 37 of the euroc_hall flight at 160x120 (the EuRoC baseline
+    scaled): within 1 grey level on >= 99.5% of the pixels, as the room's."""
+    cam = camera_from_config(config_from_reference(CameraConfig(
+        fx=93.0, fy=93.0, cx=78.4, cy=52.4, bf=10.2, width=160, height=120)))
+    T = JW.traj_hall_ellipse(400, seed=31)[37]
+    jl, jr = JW.scene_hall(seed=31).render_stereo(T, cam, noise=2.0,
+                                                   rng=np.random.default_rng(8))
+    tl, tr = TW.scene_hall(seed=31).render_stereo(T, cam, noise=2.0,
+                                                   rng=np.random.default_rng(8))
+    for got, ref in ((tl, jl), (tr, jr)):
+        assert got.shape == ref.shape == (120, 160) and got.dtype == np.float32
+        assert (np.abs(got - ref) <= 1.0).mean() >= 0.995
+    assert np.abs(tl - tr).mean() > 1.0
