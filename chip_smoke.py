@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--kernels-only | --circuit-only | --io-only | --pipelined-only |
-                           --async-only | --dist-only | --scale-only | --datasets-only]
+                           --async-only | --dist-only | --scale-only | --datasets-only |
+                           --branches-only]
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
 
@@ -208,6 +209,53 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    to read a PNG, and the launches; asserts cv2 was never imported.  Both
    kernels must launch on this path ("datasets").  --datasets-only runs
    phases 1-3 and 16 at the full lengths, without the JAX bounds.
+17. branches — the paths that only the CPU tests had run, each forced the
+   way those tests force it (a method of the system wrapped, a config field
+   replaced with dataclasses.replace, SlamSystem._lm_chunk slowed), each
+   part on a system of an earlier phase or of its own:
+   (a) after 13 (b) and (c): the stereo preset and the monocular camera over
+   the room orbit in async mode, the frames fed at the camera's period:
+   stereo 160 of 160 tracked, monocular 90% from the initializer's frame,
+   the ATE under ASYNC_STEREO_ATE_BOUND_M / ASYNC_MONO_ATE_BOUND_M (from
+   the JAX package's async runs), n_kf >= 3, the workers drained, no
+   thread alive after shutdown, the masked kernel on every mapped
+   keyframe; then monocular
+   again over ASYNC_REFUSAL_FRAMES frames with ASYNC_REFUSAL_DELAY_S spent
+   on the mapping thread before each keyframe, so that a needed keyframe
+   is refused while mapping is busy (counted through abort_ba);
+   (b) after phase 9, on the RGB-D and the stereo system: _relocalize on
+   orbit frame 80 with the system LOST and min_inliers_reloc raised, from
+   the frame's own inlier counts, to one rescue round (accepted), two
+   (accepted) and a bar no candidate reaches (rejected: reloc_rejects +1
+   per candidate, the state LOST, the map torch.equal), the accepted poses
+   within RELOC_BOUND_M, the masked kernel's launches at the rescue shapes
+   (1000 x 1000, 1200 x 1200) counted;
+   (c) phase 10's circuit on a system of its own, up to its loop: before
+   each keyframe's loop-closing call, until one is refused, _try_close_loop
+   on a copy of loop_state with min_total_matches out of reach, then, where
+   a candidate reached the projection count, one above that count plus the
+   Sim3's pairs: returns False, the map torch.equal, no GBA; the real call
+   follows and closes the loop at that keyframe;
+   (d) and (e) on phase 13 (b)'s system after it was measured, before its
+   shutdown: a GBA with slowed LM chunks stopped by what a second loop
+   does on the loop thread (abort, _correct_loop under the writer lock, a
+   new GBA): gba_aborted +1, the corrected poses standing until the new
+   GBA merges, a finite map; then a keyframe's local BA held after its
+   gather while a _correct_loop lands from the loop thread: the scatter
+   dropped (local_ba_discarded +1), map_epoch moved, the corrected poses
+   torch.equal;
+   (f) after phase 13 (a): phase 4's frames in the JAX bench's mode with
+   frame 7 blank (lost [7], LOST at frame 8 and a reset, frame 10 a new
+   map) and with the frame at which the map first holds 6 keyframes blank
+   (relocalized within 3 frames, at most 3 lost); the graph's replays
+   torch.equal to the eager step on the three frames after the recovery,
+   one capture;
+   (g) a map at the card's capacity, every slot valid (fill_full_map),
+   through save_map and load_map: every bank, the vocabulary and the
+   KeyFrameDB torch.equal; the file's size and both times.
+   Both kernels must launch on this path ("branches"); the masked kernel's
+   rescue rows in the kernel JSON carry (b)'s launches.  --branches-only
+   runs phases 1-4, 6, 7, 9, 13 (b) and 17.
 
 Since the fused step became one CUDA graph, every tracked frame of phases
 4-12 replays it; phase 5 and the stage lines of phases 7 and 8 run the
@@ -220,7 +268,8 @@ driven with the kernels' launch counts set to 0 just before it and read
 just after ("relocalization" sums phase 9's four episodes, "loop" is
 phase 10, "io" phase 11 from its relocalization on, "pipelined" phase
 12 (c), "async" phase 13 (a) and (b), "dist" phase 14, "scale" phase 15,
-"datasets" phase 16's driver and run_synthetic runs).
+"datasets" phase 16's driver and run_synthetic runs, "branches" phase
+17's parts).
 ``tests/test_torch_smoke_reference.py`` (marked slow) runs the JAX package
 on the CPU over the same frames (phase 10: the circuit's) and holds the
 JAX_* constants below to what it gives.
@@ -318,6 +367,18 @@ JAX_COOP = {"lost": 0, "n_kf": 13,
 # ATE and the synchronous run's, and n_kf is not held to JAX's.
 JAX_ASYNC_ATE_M = 0.0034942
 ASYNC_ATE_BOUND_M = 2 * max(JAX_ASYNC_ATE_M, JAX_ATE_M)
+# Phase 17 (a): the same for the stereo and the monocular room orbit
+# (test_jax_reference_async[stereo], [monocular]).  Stereo: 160/160 tracked,
+# n_kf 8 at the synchronous run's frames, n_pt 2359, ATE 0.0019023 m; the
+# bound is twice the larger of that and the synchronous run's.  Monocular:
+# 158/158 tracked from frame 2, n_kf 23 (keyframes needed while mapping was
+# busy are refused, against 158 in the synchronous run), n_pt 4196,
+# Sim3-aligned ATE 0.0147032 m; the bound is three times the larger, as for
+# phase 8.
+JAX_ASYNC_STEREO_ATE_M = 0.0019023
+ASYNC_STEREO_ATE_BOUND_M = 2 * max(JAX_ASYNC_STEREO_ATE_M, JAX_STEREO_ATE_M)
+JAX_ASYNC_MONO_ATE_M = 0.0147032
+ASYNC_MONO_ATE_BOUND_M = 3 * max(JAX_ASYNC_MONO_ATE_M, JAX_MONO_ATE_M)
 JAX_CIRCUIT = {"lost": 0, "loop": (5, 88), "loop_frames": (6, 124), "frame": 124,
                "gba_runs": 1, "ate": 0.2420207}
 CIRCUIT_FRAME_TOL = 3
@@ -2102,17 +2163,75 @@ ASYNC_CIRCUIT_PERIOD_S = 0.7
 ASYNC_SENSOR_FRAMES = 40
 
 
-def _async_circuit_run(cfg, frames, period: float) -> dict:
-    """The circuit's frames through a fresh async system, one per
-    ``period`` s at most; every frame timed to the end of the tracker's
-    stream.  Returns the system (shut down) and what the run gave."""
+def _paced_async_run(cfg, frames, period: float, hooks=None, map_delay: float = 0.0,
+                     before_shutdown=None) -> dict:
+    """``frames`` through a fresh async system, one per ``period`` s at
+    most (each no earlier than that after the one before started), each
+    timed to the end of the tracker's stream; then the workers drained.
+    Each keyframe's mapping is timed on its thread, with its masked
+    launches, after ``map_delay`` s slept there.  ``hooks(slam, run)``, a
+    context manager around the run, wraps the system's methods and fills
+    ``run`` with what they record.  The run is read after the drain; then
+    ``before_shutdown(slam, run)`` runs on the live system (phase 17) and
+    the system is shut down.  Returns the run."""
     from refactored_orb_slam2_tpu_torch.ops import cuda_hamming
     from refactored_orb_slam2_tpu_torch.system import SlamSystem
     from refactored_orb_slam2_tpu_torch.utils import telemetry
 
     slam = SlamSystem(cfg, device="cuda", async_mapping=True)
-    gba, merges, mapped = [], [], []
-    worker, merge, steps = slam._gba_worker, slam._merge_gba_result, slam._mapping_steps
+    run, mapped, steps = {}, [], slam._mapping_steps
+
+    def timed_steps(kf_slot):
+        time.sleep(map_delay)
+        t0 = time.perf_counter()
+        before = cuda_hamming.thread_launches()["hamming_best2"]
+        yield from steps(kf_slot)
+        slam._sync_stream()
+        mapped.append((kf_slot, (time.perf_counter() - t0) * 1e3,
+                       cuda_hamming.thread_launches()["hamming_best2"] - before))
+
+    slam._mapping_steps = timed_steps
+    threads = slam.mapper.threads()
+    backlog = telemetry.get("warn.mapping_backlog")
+    tracker = torch.cuda.current_stream()
+    cuda_hamming.reset_launches()
+    out, ms, t_next = [], [], time.perf_counter()
+    with hooks(slam, run) if hooks is not None else contextlib.nullcontext():
+        for i, frame in enumerate(frames):
+            time.sleep(max(0.0, t_next - time.perf_counter()))
+            t0 = time.perf_counter()
+            t_next = t0 + period
+            out.append(track_device(slam, frame, i))
+            tracker.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        drained = slam.wait_mapping_idle(timeout=600)
+        drain_ms = (time.perf_counter() - t0) * 1e3
+    # the lists as the run left them, before phase 17 adds to them
+    run = {k: list(v) if isinstance(v, list) else v for k, v in run.items()}
+    run.update(slam=slam, out=out, lost=[i for i, p in enumerate(out) if p is None],
+               ms=np.asarray(ms), mapped=list(mapped), drained=drained, drain_ms=drain_ms,
+               launches=dict(cuda_hamming.launches),
+               by_thread={k: dict(v) for k, v in cuda_hamming.launches_by_thread.items()},
+               backlog=telemetry.get("warn.mapping_backlog") - backlog)
+    if before_shutdown is not None:
+        before_shutdown(slam, run)
+    threads += [t for t in [slam._gba_thread] if t is not None and t not in threads]
+    slam.shutdown()
+    run["alive"] = [t.name for t in threads if t.is_alive()]
+    return run
+
+
+@contextlib.contextmanager
+def _gba_and_loop_log(slam, run):
+    """Phase 13 (b)'s records of a paced async run: each GBA's wall time on
+    its thread with the n_kf of its snapshot (``gba``), the keyframes and
+    points each merge moved (``merges``), and each keyframe whose loop
+    detection gave candidates, with their Sim3 outcomes (``detections``)."""
+    from refactored_orb_slam2_tpu_torch import system
+
+    gba, merges, detections = run["gba"], run["merges"], run["detections"] = [], [], []
+    worker, merge = slam._gba_worker, slam._merge_gba_result
 
     def timed_gba(snapshot, epoch, n_kf_snap, n_pt_snap, iters):
         t0 = time.perf_counter()
@@ -2124,40 +2243,29 @@ def _async_circuit_run(cfg, frames, period: float) -> dict:
         merges.append((slam.n_kf - n_kf_snap, slam.n_pt - n_pt_snap))
         merge(snapshot, result, n_kf_snap, n_pt_snap)
 
-    def timed_steps(kf_slot):
-        t0 = time.perf_counter()
-        yield from steps(kf_slot)
-        slam._sync_stream()
-        mapped.append((time.perf_counter() - t0) * 1e3)
+    detect, sim3 = system.LC.detect, system.LC.compute_sim3
+
+    def logged_detect(state, db, kf_slot, *args, **kwargs):
+        cands = detect(state, db, kf_slot, *args, **kwargs)
+        if cands:
+            detections.append([kf_slot, list(cands), []])
+        return cands
+
+    def logged_sim3(state, cam, kf_cur, kf_cand, **kwargs):
+        out = sim3(state, cam, kf_cur, kf_cand, **kwargs)
+        if detections and detections[-1][0] == kf_cur:
+            detections[-1][2].append(bool(out[0]))
+        return out
 
     slam._gba_worker, slam._merge_gba_result = timed_gba, counted_merge
-    slam._mapping_steps = timed_steps
-    threads = slam.mapper.threads()
-    backlog = telemetry.get("warn.mapping_backlog")
-    tracker = torch.cuda.current_stream()
-    cuda_hamming.reset_launches()
-    lost, ms, t_next = [], [], time.perf_counter()
-    for i, frame in enumerate(frames):
-        time.sleep(max(0.0, t_next - time.perf_counter()))
-        t0 = time.perf_counter()
-        t_next = t0 + period
-        if track_device(slam, frame, i) is None:
-            lost.append(i)
-        tracker.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
-    if not slam.wait_mapping_idle(timeout=600):
-        raise AssertionError("async (b): the workers did not drain in 600 s")
-    launches = dict(cuda_hamming.launches)
-    by_thread = {k: dict(v) for k, v in cuda_hamming.launches_by_thread.items()}
-    threads += [t for t in [slam._gba_thread] if t is not None and t not in threads]
-    slam.shutdown()
-    return dict(slam=slam, lost=lost, ms=np.asarray(ms), gba=gba, merges=merges,
-                mapped=mapped, launches=launches, by_thread=by_thread,
-                alive=[t.name for t in threads if t.is_alive()],
-                backlog=telemetry.get("warn.mapping_backlog") - backlog)
+    system.LC.detect, system.LC.compute_sim3 = logged_detect, logged_sim3
+    try:
+        yield
+    finally:
+        system.LC.detect, system.LC.compute_sim3 = detect, sim3
 
 
-def _async_circuit(card: str, sync_gba_ms: float | None) -> dict:
+def _async_circuit(card: str, sync_gba_ms: float | None, branches: dict | None = None) -> dict:
     """Phase 13 (b): phase 10's street circuit in async mode at the card's
     map capacity: the loop closed on the loop thread, the global BA on its
     own thread and stream while tracking and mapping go on.  First the
@@ -2166,39 +2274,58 @@ def _async_circuit(card: str, sync_gba_ms: float | None) -> dict:
     edge, a GBA run and merged, every thread stopped, the rigidly aligned
     ATE under CIRCUIT_ATE_BOUND_M.  Prints the keyframes made while the GBA
     ran (the merge's propagation path) and its wall time.  Returns the
-    launches of the held run."""
+    launches of the held run.  With ``branches``, phase 17 (d) and (e) run
+    on the held run's system after it was measured, before its shutdown,
+    and their launches go into ``branches``."""
     cfg, poses = circuit_config(), circuit_poses()
     t_phase = time.perf_counter()
     frames = render_circuit(poses, "cuda")
     torch.cuda.synchronize()
 
-    fast = _async_circuit_run(cfg, frames[:ASYNC_SENSOR_FRAMES], 1.0 / cfg.camera.fps)
+    fast = _paced_async_run(cfg, frames[:ASYNC_SENSOR_FRAMES], 1.0 / cfg.camera.fps)
+    if not fast["drained"]:
+        raise AssertionError("async (b): the workers did not drain in 600 s")
     print(f"async (b), circuit at the camera's {cfg.camera.fps} fps, frames 0-"
           f"{ASYNC_SENSOR_FRAMES - 1} (measured, not held): lost {len(fast['lost'])} (from frame "
           f"{fast['lost'][0] if fast['lost'] else None}), n_kf {fast['slam'].n_kf}, "
           f"mapping_backlog warnings {fast['backlog']}, frame median "
           f"{np.median(fast['ms']):.2f} ms, mean {fast['ms'].mean():.2f} ms, mapping per "
-          f"keyframe on its thread median {np.median(fast['mapped']):.1f} ms ({card})")
+          f"keyframe on its thread median {np.median([t for _, t, _ in fast['mapped']]):.1f} ms "
+          f"({card})")
     del fast
 
-    run = _async_circuit_run(cfg, frames, ASYNC_CIRCUIT_PERIOD_S)
-    slam, lost, ms = run["slam"], run["lost"], run["ms"]
     gt = world_centres(poses)
-    ate = ate_rmse_se3(slam.camera_centers(), gt[slam.tracked_frame_ids()])
-    edges = slam.map.kf_loop_edges.cpu().numpy()
-    pairs = sorted({tuple(sorted((k, int(x)))) for k in range(edges.shape[0])
-                    for x in edges[k] if x >= 0})
-    kf_frame = slam.map.kf_frame_id.cpu().numpy()
-    pair_frames = [tuple(int(kf_frame[k]) for k in pair) for pair in pairs]
-    merged = slam.stats["gba_runs"] - slam.stats["gba_aborted"]
+
+    def measured(slam, run):
+        """What 13 (b) reads of the held run, before phase 17 changes it."""
+        edges = slam.map.kf_loop_edges.cpu().numpy()
+        pairs = sorted({tuple(sorted((k, int(x)))) for k in range(edges.shape[0])
+                        for x in edges[k] if x >= 0})
+        kf_frame = slam.map.kf_frame_id.cpu().numpy()
+        run.update(ate=ate_rmse_se3(slam.camera_centers(), gt[slam.tracked_frame_ids()]),
+                   pairs=pairs, pair_frames=[tuple(int(kf_frame[k]) for k in pair)
+                                             for pair in pairs],
+                   stats=dict(slam.stats), n_kf=slam.n_kf, n_pt=slam.n_pt,
+                   finite=bool(np.isfinite(slam.frame_poses()).all()))
+        if branches is not None:
+            launches = _gba_and_scatter(slam, card)
+            for name, n in launches.items():
+                branches[name] = branches.get(name, 0) + n
+
+    run = _paced_async_run(cfg, frames, ASYNC_CIRCUIT_PERIOD_S, _gba_and_loop_log,
+                           before_shutdown=measured)
+    lost, ms, ate, pairs = run["lost"], run["ms"], run["ate"], run["pairs"]
+    map_ms = [t for _, t, _ in run["mapped"]]
+    pair_frames, stats = run["pair_frames"], run["stats"]
+    merged = stats["gba_runs"] - stats["gba_aborted"]
     print(f"async (b), circuit, a frame per {ASYNC_CIRCUIT_PERIOD_S} s at most: "
-          f"{len(frames) - len(lost)}/{len(frames)} tracked, lost {lost}, n_kf {slam.n_kf}, "
-          f"n_pt {slam.n_pt}, kf_loop_edges pairs {pairs} made at frames {pair_frames} (JAX "
+          f"{len(frames) - len(lost)}/{len(frames)} tracked, lost {lost}, n_kf {run['n_kf']}, "
+          f"n_pt {run['n_pt']}, kf_loop_edges pairs {pairs} made at frames {pair_frames} (JAX "
           f"synchronous: {JAX_CIRCUIT['loop']} at {JAX_CIRCUIT['loop_frames']}), GBAs run "
-          f"{slam.stats['gba_runs']}, aborted {slam.stats['gba_aborted']}, merged {merged}; "
+          f"{stats['gba_runs']}, aborted {stats['gba_aborted']}, merged {merged}; "
           f"keyframes and points made while a GBA ran, moved by its merge {run['merges']}; "
           f"rigidly aligned ATE {ate:.6f} m (bound {CIRCUIT_ATE_BOUND_M:.6f} m), "
-          f"mapping_backlog warnings {run['backlog']}, paths {slam.stats}, threads alive after "
+          f"mapping_backlog warnings {run['backlog']}, paths {stats}, threads alive after "
           f"shutdown {run['alive']}")
     print(f"async (b) times: GBA wall on its thread "
           + ", ".join(f"{t:.1f} ms (snapshot at n_kf {k})" for t, k in run["gba"])
@@ -2206,19 +2333,23 @@ def _async_circuit(card: str, sync_gba_ms: float | None) -> dict:
              " (phase 10 did not run in this call)")
           + f"; frame median {np.median(ms):.2f} ms, mean {ms.mean():.2f} ms, max "
           f"{ms.max():.2f} ms (host clock to the end of the tracker's stream); mapping per "
-          f"keyframe on its thread median {np.median(run['mapped']):.1f} ms, max "
-          f"{max(run['mapped']):.1f} ms; launches {run['launches']}, by thread "
+          f"keyframe on its thread median {np.median(map_ms):.1f} ms, max "
+          f"{max(map_ms):.1f} ms; launches {run['launches']}, by thread "
           f"{run['by_thread']}; phase 13 (b) took {time.perf_counter() - t_phase:.1f} s ({card})")
     print(f"async (b) per-frame ms: " + " ".join(f"{t:.0f}" for t in ms))
+    print("async (b) loop detection (keyframe: candidates and their Sim3 accepted, where "
+          "detection gave any): " + "; ".join(f"{k}: {c} {a}" for k, c, a in run["detections"]))
+    if not run["drained"]:
+        raise AssertionError("async (b): the workers did not drain in 600 s")
     if len(lost) > 2:
         raise AssertionError(f"async (b): {len(lost)} frames lost")
     if len(pairs) != 1:
         raise AssertionError(f"async (b): loop edges {pairs}")
     if merged < 1 or not run["merges"]:
-        raise AssertionError(f"async (b): no GBA merged ({slam.stats})")
+        raise AssertionError(f"async (b): no GBA merged ({stats})")
     if run["alive"]:
         raise AssertionError(f"async (b): threads alive after shutdown: {run['alive']}")
-    if not (ate < CIRCUIT_ATE_BOUND_M and np.isfinite(slam.frame_poses()).all()):
+    if not (ate < CIRCUIT_ATE_BOUND_M and run["finite"]):
         raise AssertionError(f"async (b): ATE {ate:.6f} m, bound {CIRCUIT_ATE_BOUND_M:.6f} m")
     return run["launches"]
 
@@ -2661,6 +2792,708 @@ def _datasets(card: str, full: bool) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ branches
+def fill_full_map(slam, seed: int) -> None:
+    """Every keyframe and point slot of ``slam``'s map valid and every bank
+    drawn from ``seed`` on the system's device (descriptor words over the
+    whole int32 range, so the sign bit crosses the file), the packaged
+    vocabulary and a KeyFrameDB with every slot valid: a map at capacity,
+    for the checkpoint of phase 17 (g).  The values are not a consistent
+    world, only what the file has to carry."""
+    from refactored_orb_slam2_tpu_torch.models.map_state import MapState
+    from refactored_orb_slam2_tpu_torch.place.keyframe_db import KeyFrameDB
+    from refactored_orb_slam2_tpu_torch.place.vocab import load_vocabulary
+    from refactored_orb_slam2_tpu_torch.system import VOCAB_ASSET
+
+    K, N, P, O = slam.map.capacity
+    dev = slam.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    real = lambda *shape, scale=1.0: torch.rand(shape, generator=gen, device=dev) * scale
+    ints = lambda lo, hi, *shape: torch.randint(lo, hi, shape, generator=gen, device=dev,
+                                                dtype=torch.int32)
+    valid = lambda *shape: torch.ones(shape, dtype=torch.bool, device=dev)
+    slam.map = MapState(
+        kf_pose=real(K, 4, 4), kf_valid=valid(K), kf_frame_id=ints(0, 1 << 20, K),
+        kf_xy=real(K, N, 2, scale=640.0), kf_uvr=real(K, N, 3, scale=640.0),
+        kf_octave=ints(0, 8, K, N), kf_angle=real(K, N, scale=360.0),
+        kf_desc=ints(-2**31, 2**31, K, N, 8), kf_feat_valid=valid(K, N),
+        kf_point_idx=ints(0, P, K, N),
+        pt_pos=real(P, 3, scale=10.0), pt_valid=valid(P), pt_desc=ints(-2**31, 2**31, P, 8),
+        pt_normal=real(P, 3), pt_min_dist=real(P), pt_max_dist=real(P, scale=20.0),
+        pt_ref_kf=ints(0, K, P), pt_first_kf=ints(0, K, P), pt_visible=ints(0, 1000, P),
+        pt_found=ints(0, 1000, P), pt_obs_kf=ints(0, K, P, O), pt_obs_feat=ints(0, N, P, O),
+        kf_parent=torch.arange(-1, K - 1, dtype=torch.int32, device=dev),
+        kf_loop_edges=ints(-1, K, K, 8),
+    )
+    slam.n_kf, slam.n_pt, slam.ref_kf = K, P, K - 1
+    slam.vocab = load_vocabulary(VOCAB_ASSET, dev)
+    slam.db = KeyFrameDB(slam.vocab, K)
+    slam.db.bow = real(K, slam.vocab.n_words)
+    slam.db.valid = valid(K)
+
+
+def _full_checkpoint(card: str) -> None:
+    """Phase 17 (g): a map at the card's capacity, every slot valid
+    (``fill_full_map``), through io/checkpoint.py's save_map and load_map
+    into a fresh system; every bank, the vocabulary and the KeyFrameDB
+    torch.equal after the round trip."""
+    import tempfile
+
+    from refactored_orb_slam2_tpu_torch.io.checkpoint import load_map, save_map
+    from refactored_orb_slam2_tpu_torch.system import SlamSystem
+
+    cfg = rgbd_config()
+    full = SlamSystem(cfg, device="cuda")
+    fill_full_map(full, seed=17)
+    K, N, P, O = full.map.capacity
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "full.npz")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_map(path, full)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        loaded = SlamSystem(cfg, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        load_map(path, loaded)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    diff = _same_map(full, loaded)
+    banks = sum(getattr(full.map, name).numel() * getattr(full.map, name).element_size()
+                for name in vars(full.map))
+    print(f"branches (g), a full map's checkpoint: {K} x {N} x {P} x {O}, every keyframe and "
+          f"point slot valid, {banks / 2**20:.1f} MiB of banks; file {size} B "
+          f"({size / 2**20:.1f} MiB, np.savez_compressed), saved in {save_s:.3f} s, loaded in "
+          f"{load_s:.3f} s (host clock with synchronize; {card}); differing: {diff or 'none'}")
+    if diff:
+        raise AssertionError(f"branches (g): the loaded full map differs in {diff}")
+
+
+@contextlib.contextmanager
+def _refusal_log(slam, run):
+    """The frames whose needed keyframe ``_need_new_keyframe`` refused while
+    mapping was busy, in ``run["refused"]``: the tracker set ``abort_ba``
+    (InterruptBA, Tracking.cc:951) and the call said no (monocular always;
+    stereo and RGB-D after the 500 ms backpressure window).  ``abort_ba`` is
+    watched through a subclass's ``__setattr__``."""
+    base, sets, refused = type(slam), [0], []
+    run["refused"] = refused
+
+    class Watched(base):
+        def __setattr__(self, name, value):
+            if name == "abort_ba" and value:
+                sets[0] += 1
+            base.__setattr__(self, name, value)
+
+    slam.__class__ = Watched
+    need = slam._need_new_keyframe
+
+    def watched(*args, **kwargs):
+        before = sets[0]
+        ok = need(*args, **kwargs)
+        if not ok and sets[0] > before:
+            refused.append(slam.frame_id)
+        return ok
+
+    slam._need_new_keyframe = watched
+    yield
+
+
+# Phase 17 (a): at the camera's period a monocular keyframe's mapping (~360
+# ms on its thread on an H100) ends before max_frames_between_kf (30
+# frames) pass, so no needed keyframe meets a busy mapper.  A second run
+# over the first ASYNC_REFUSAL_FRAMES frames spends ASYNC_REFUSAL_DELAY_S on
+# the mapping thread before each keyframe, which the refusal path then
+# meets.
+ASYNC_REFUSAL_FRAMES, ASYNC_REFUSAL_DELAY_S = 80, 1.5
+
+
+def _async_sensor(cfg, frames, poses, card: str) -> dict:
+    """Phase 17 (a): the stereo preset or the monocular camera over the room
+    orbit in async mode, the frames fed at the camera's period (neither
+    sensor lost a frame at it on the H100, so no slower period is held).
+    Asserts monocular 90% of the frames after the initializer's
+    tracked, stereo all 160, the ATE under the bound from the JAX package's
+    async run (monocular Sim3-aligned), n_kf >= 3, the workers drained and
+    no thread alive after shutdown, window_match launched and the masked
+    kernel on every mapped keyframe.  Returns the held run's launches."""
+    mono = cfg.sensor == "monocular"
+    bound = ASYNC_MONO_ATE_BOUND_M if mono else ASYNC_STEREO_ATE_BOUND_M
+    gt = gt_centres(poses)
+
+    def judged(run, period):
+        slam, out = run["slam"], run["out"]
+        first = next((i for i, p in enumerate(out) if p is not None), len(out))
+        n_tracked, n_after = len(slam.tracked_logs()), len(out) - first
+        lost = [i for i, p in enumerate(out) if i >= first and p is None]
+        ate = ((ate_rmse_sim3 if mono else ate_rmse)(slam.camera_centers(),
+                                                     gt[slam.tracked_frame_ids()])
+               if n_tracked >= 3 else float("inf"))
+        ms, map_ms = run["ms"], [t for _, t, _ in run["mapped"]]
+        print(f"branches (a), {cfg.sensor} async at a frame per {period:.4f} s at most "
+              f"(camera period {1.0 / cfg.camera.fps:.4f} s): {n_tracked}/{n_after} tracked from "
+              f"frame {first}, frames lost {lost}, n_kf {slam.n_kf}, n_pt {slam.n_pt}, "
+              f"culled {sorted(slam.culled_chain)}, {'Sim3-aligned ' if mono else ''}ATE "
+              f"{ate:.6f} m (bound {bound:.7f} m from the JAX package's async run), keyframes "
+              f"refused while mapping was busy {len(run['refused'])}, mapping_backlog warnings "
+              f"{run['backlog']}, drained {run['drained']}, threads alive after shutdown "
+              f"{run['alive']}, paths {slam.stats} ({card})")
+        print(f"branches (a), {cfg.sensor} async times: frame median {np.median(ms):.2f} ms, "
+              f"mean {ms.mean():.2f} ms (host clock to the end of the tracker's stream); mapping "
+              f"per keyframe on its thread median "
+              f"{np.median(map_ms) if map_ms else float('nan'):.1f} ms over {len(map_ms)} "
+              f"keyframes; drain {run['drain_ms']:.1f} ms; launches {run['launches']}, by thread "
+              f"{run['by_thread']}; masked launches per mapped keyframe "
+              f"{[m for *_, m in run['mapped']]} ({card})")
+        ok = n_tracked >= (0.9 * n_after if mono else len(out)) and first < len(out)
+        return ok, dict(first=first, n_tracked=n_tracked, ate=ate)
+
+    period = 1.0 / cfg.camera.fps
+    run = _paced_async_run(cfg, frames, period, _refusal_log)
+    ok, res = judged(run, period)
+    slam, mapped = run["slam"], run["mapped"]
+    name = f"branches (a), {cfg.sensor}"
+    if not ok:
+        raise AssertionError(f"{name}: tracked {res['n_tracked']} frames from frame "
+                             f"{res['first']} at a frame per {period} s")
+    if not res["ate"] < bound:
+        raise AssertionError(f"{name}: ATE {res['ate']:.6f} m >= bound {bound:.6f} m")
+    if slam.n_kf < 3:
+        raise AssertionError(f"{name}: n_kf {slam.n_kf}")
+    if not run["drained"] or run["alive"]:
+        raise AssertionError(f"{name}: drained {run['drained']}, threads alive after shutdown "
+                             f"{run['alive']}")
+    if run["launches"]["window_match"] < 1:
+        raise AssertionError(f"{name}: no window_match launch")
+    if (not mapped or min(m for *_, m in mapped) < 1
+            or run["by_thread"].get("local-mapping", {}).get("hamming_best2", 0) < 1):
+        raise AssertionError(f"{name}: masked launches per mapped keyframe "
+                             f"{[m for *_, m in mapped]}, by thread {run['by_thread']}")
+    launches = run["launches"]
+    if mono:
+        # a needed keyframe refused while mapping is busy (system.py's
+        # monocular ``return False`` after InterruptBA)
+        slow = _paced_async_run(cfg, frames[:ASYNC_REFUSAL_FRAMES], 1.0 / cfg.camera.fps,
+                                _refusal_log, map_delay=ASYNC_REFUSAL_DELAY_S)
+        out, slam = slow["out"], slow["slam"]
+        first = next((i for i, p in enumerate(out) if p is not None), None)
+        print(f"branches (a), monocular async with {ASYNC_REFUSAL_DELAY_S} s spent on the mapping "
+              f"thread before each keyframe, frames 0-{len(out) - 1} at the camera's period: "
+              f"{sum(p is not None for p in out)} returned a pose (from frame {first}; a lost "
+              f"map of at most 5 keyframes resets), n_kf {slam.n_kf}, keyframes "
+              f"refused while mapping was busy at frames {slow['refused']}, drained "
+              f"{slow['drained']}, threads alive after shutdown {slow['alive']}, paths {slam.stats} "
+              f"({card})")
+        if not slow["refused"] or not slow["drained"] or slow["alive"] or first is None:
+            raise AssertionError(f"{name}: with mapping held, refused {slow['refused']}, drained "
+                                 f"{slow['drained']}, alive {slow['alive']}")
+        launches = {k: n + slow["launches"][k] for k, n in launches.items()}
+    return launches
+
+
+def _rescue(slam, frames, poses, path: str, card: str) -> dict:
+    """Phase 17 (b) on a phase-9 system: ``_relocalize`` on the orbit frame
+    that relocalized there, with the system set LOST and the accept bar
+    ``min_inliers_reloc`` raised, as tests/test_torch_reloc.py's STRICT bars
+    do.  The bars come from this frame's own inlier counts: the first LM's
+    plus one (one rescue round, accepted), the LM's after that round plus
+    one (two rounds, accepted), and one no candidate can reach
+    (rejected).  Asserts the rounds, the accepted poses within RELOC_BOUND_M
+    of the rendered centre, on the reject one reloc_reject per candidate
+    that reached the bar, the state LOST and the map torch.equal, and the
+    masked kernel launched by the rescue rounds.  The system is put back
+    after each call.  Returns the calls' launches and the rescue rounds'
+    masked launches by shape."""
+    import dataclasses
+
+    from refactored_orb_slam2_tpu_torch.models.map_state import MapState
+    from refactored_orb_slam2_tpu_torch.ops import cuda_hamming
+    from refactored_orb_slam2_tpu_torch.system import TrackState
+
+    i = RELOC_STEPS[path][0]
+    frame = slam._build_frame(*frames[i])
+    gt = gt_centres(poses)[i]
+    rescue_shapes = collections.Counter()
+    reloc_rescue = slam._reloc_rescue
+
+    def counted_rescue(*args, **kwargs):
+        """A rescue round: the shapes its masked searches launched at."""
+        best2, before = cuda_hamming.hamming_best2, cuda_hamming.launches["hamming_best2"]
+        shapes = []
+        cuda_hamming.hamming_best2 = lambda a, b, m: shapes.append((a.shape[0], b.shape[0])) \
+            or best2(a, b, m)
+        try:
+            return reloc_rescue(*args, **kwargs)
+        finally:
+            cuda_hamming.hamming_best2 = best2
+            torch.cuda.synchronize()
+            if cuda_hamming.launches["hamming_best2"] - before != len(shapes):
+                raise AssertionError(f"{path}: rescue round launches do not match its calls")
+            rescue_shapes.update(f"{n1}x{n2}" for n1, n2 in shapes)
+
+    slam._reloc_rescue = counted_rescue
+    cuda_hamming.reset_launches()
+    def call(bar):
+        cfg, kept = slam.cfg, (dict(slam.stats), slam.ref_kf, slam._ref_matches, slam.state)
+        slam.cfg = dataclasses.replace(
+            cfg, tracking=dataclasses.replace(cfg.tracking, min_inliers_reloc=bar))
+        slam.state = TrackState.LOST
+        before = {f.name: getattr(slam.map, f.name).clone() for f in dataclasses.fields(MapState)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            ok, pose, _ = slam._relocalize(frame)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            rec = dict(bar=bar, ok=ok, ms=ms, state=slam.state,
+                       pose=None if pose is None else pose.cpu().numpy(),
+                       rejects=slam.stats["reloc_rejects"] - kept[0]["reloc_rejects"],
+                       relocs=slam.stats["relocs"] - kept[0]["relocs"],
+                       log=[{k: v for k, v in r.items() if k not in ("frame", "pose", "pt_idx")}
+                            for r in slam.reloc_log],
+                       map_equal=all(torch.equal(v, getattr(slam.map, k))
+                                     for k, v in before.items()))
+        finally:
+            slam.cfg = cfg
+            slam.stats, slam.ref_kf, slam._ref_matches, slam.state = kept
+        acc = next((r for r in rec["log"] if r["accepted"]), None)
+        rec["rounds"] = None if acc is None else acc["rescue_rounds"]
+        rec["err"] = None if rec["pose"] is None else centre_error(rec["pose"], gt)
+        err = "-" if rec["err"] is None else f"{rec['err']:.6f}"
+        print(f"branches (b), {path}, orbit frame {i}, bar {bar}: "
+              f"{'accepted' if ok else 'rejected'} in {ms:.2f} ms (host clock with synchronize; "
+              f"{card}); candidates {[r['cand'] for r in rec['log']]}, BoW matches "
+              f"{[r.get('bow_matches') for r in rec['log']]}, EPnP inliers "
+              f"{[r.get('epnp_inliers') for r in rec['log']]}, LM inliers per step "
+              f"{[r.get('lm_inliers') for r in rec['log']]}, rescue rounds "
+              f"{[r['rescue_rounds'] for r in rec['log']]}; reloc_rejects +{rec['rejects']}, "
+              f"state after {rec['state']}, centre error {err} m")
+        return rec
+
+    base = call(slam.cfg.tracking.min_inliers_reloc)
+    acc = next((r for r in base["log"] if r["accepted"]), None)
+    if acc is None:
+        raise AssertionError(f"branches (b), {path}: orbit frame {i} did not relocalize")
+    one = call(acc["lm_inliers"][0] + 1)
+    if not (one["ok"] and one["rounds"] == 1):
+        raise AssertionError(f"branches (b), {path}: bar {one['bar']} gave rounds "
+                             f"{one['rounds']}, accepted {one['ok']}; one round expected")
+    two = call(next(r for r in one["log"] if r["accepted"])["lm_inliers"][-1] + 1)
+    if not (two["ok"] and two["rounds"] == 2):
+        raise AssertionError(f"branches (b), {path}: bar {two['bar']} gave rounds "
+                             f"{two['rounds']}, accepted {two['ok']}; two rounds expected")
+    reject = call(10 ** 4)
+    reached = [r for r in reject["log"] if (r.get("lm_inliers") or [0])[0] >= 10]
+    print(f"branches (b), {path}: bars one round {one['bar']}, two rounds {two['bar']}, "
+          f"rejected {reject['bar']} (the default {base['bar']}: rounds {base['rounds']}); "
+          f"{len(reached)} candidate(s) reached the bar on the rejected call; the rescue rounds' "
+          f"masked launches by shape {dict(rescue_shapes)} ({card})")
+    if reject["ok"] or not reached or reject["rejects"] != len(reached):
+        raise AssertionError(f"branches (b), {path}: the rejected call gave ok {reject['ok']}, "
+                             f"reloc_rejects +{reject['rejects']} for {len(reached)} candidates")
+    if reject["state"] != TrackState.LOST or not reject["map_equal"]:
+        raise AssertionError(f"branches (b), {path}: after the reject state {reject['state']}, "
+                             f"map unchanged {reject['map_equal']}")
+    if [r["rescue_rounds"] for r in reached] != [1] * len(reached):
+        raise AssertionError(f"branches (b), {path}: the rejected call ran rounds "
+                             f"{[r['rescue_rounds'] for r in reached]}")
+    for rec in (base, one, two):
+        if not (rec["err"] is not None and rec["err"] < RELOC_BOUND_M[path]):
+            raise AssertionError(f"branches (b), {path}: bar {rec['bar']} accepted at "
+                                 f"{rec['err']} m from the rendered centre, bound "
+                                 f"{RELOC_BOUND_M[path]} m")
+    n = slam.n_feat_slots
+    if rescue_shapes[f"{n}x{n}"] < 1:
+        raise AssertionError(f"branches (b), {path}: no rescue launch at {n}x{n}: "
+                             f"{dict(rescue_shapes)}")
+    del slam._reloc_rescue
+    return dict(launches=dict(cuda_hamming.launches), shapes=dict(rescue_shapes))
+
+
+def _refused_sim3_trial(slam, raw_close, kf_slot: int, out: dict) -> None:
+    """Before the real loop-closing call of a keyframe, ``raw_close`` (the
+    system's own ``_try_close_loop``) on a copy of ``loop_state``: first
+    with ``min_total_matches`` out of reach to find the count, then, at the
+    keyframe whose candidate reached the projection count, once more with
+    the bar one above that count plus the Sim3's pairs.  Asserts the refused
+    call returned False, left every map bank torch.equal and ran no GBA; the
+    config and ``loop_state`` are put back for the real call.  Fills
+    ``out`` at the refused keyframe."""
+    import copy
+    import dataclasses
+
+    from refactored_orb_slam2_tpu_torch import system
+    from refactored_orb_slam2_tpu_torch.models.map_state import MapState
+
+    def attempt(bar):
+        counts, sims = [], []
+        count, sim3 = system.LC.count_loop_projection_matches, system.LC.compute_sim3
+
+        def counting(*args):
+            n = count(*args)
+            counts.append(int(n))
+            return n
+
+        def recording(*args, **kwargs):
+            r = sim3(*args, **kwargs)
+            sims.append(r)
+            return r
+
+        cfg, state = slam.cfg, slam.loop_state
+        slam.loop_state = copy.deepcopy(state)
+        slam.cfg = dataclasses.replace(cfg, loop=dataclasses.replace(cfg.loop,
+                                                                     min_total_matches=bar))
+        before = {f.name: getattr(slam.map, f.name).clone() for f in dataclasses.fields(MapState)}
+        gba = (slam.stats["gba_runs"], slam.gba_epoch, slam.map_epoch)
+        system.LC.count_loop_projection_matches, system.LC.compute_sim3 = counting, recording
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            closed = raw_close(kf_slot)
+            torch.cuda.synchronize()
+        finally:
+            system.LC.count_loop_projection_matches, system.LC.compute_sim3 = count, sim3
+            slam.cfg, slam.loop_state = cfg, state
+        pairs = [len(r[4]) for r in sims if r[0]]
+        return dict(closed=closed, counts=counts, pairs=pairs,
+                    ms=(time.perf_counter() - t0) * 1e3,
+                    map_equal=all(torch.equal(v, getattr(slam.map, k)) for k, v in before.items()),
+                    gba_unchanged=gba == (slam.stats["gba_runs"], slam.gba_epoch, slam.map_epoch))
+
+    first = attempt(10 ** 9)
+    if not first["counts"]:
+        return
+    # one above the best candidate's projection count and pairs
+    bar = max(n + k for n, k in zip(first["counts"], first["pairs"])) + 1
+    refused = attempt(bar)
+    out.update(kf=kf_slot, frame=slam.frame_id, count=first["counts"][0],
+               pairs=first["pairs"][0], bar=bar, refused=refused)
+    if refused["closed"] or refused["counts"] != first["counts"]:
+        raise AssertionError(f"branches (c): at bar {bar} the call gave {refused['closed']}, "
+                             f"counts {refused['counts']} (first pass {first['counts']})")
+    if not (refused["map_equal"] and refused["gba_unchanged"] and first["map_equal"]):
+        raise AssertionError(f"branches (c): the refused Sim3 changed the map "
+                             f"({refused['map_equal']}) or ran a GBA "
+                             f"(unchanged: {refused['gba_unchanged']})")
+
+
+def _refused_sim3(card: str) -> dict:
+    """Phase 17 (c): phase 10's street circuit on a system of its own, up
+    to the frame whose loop closes.  Before each keyframe's loop-closing
+    call, until one has been refused, ``_refused_sim3_trial``; then the real
+    call.  Asserts a Sim3 was refused after the projection count, and that
+    the real call closed the loop at that keyframe and ran a GBA.  Returns
+    the run's launches."""
+    from refactored_orb_slam2_tpu_torch.ops import cuda_hamming
+    from refactored_orb_slam2_tpu_torch.system import SlamSystem
+
+    cfg, poses = circuit_config(), circuit_poses()
+    frames = render_circuit(poses, "cuda")
+    slam = SlamSystem(cfg, device="cuda")
+    inner, out, closed_at = slam._try_close_loop, {}, []
+
+    def trial_first(kf_slot):
+        if "refused" not in out:
+            _refused_sim3_trial(slam, inner, kf_slot, out)
+        if inner(kf_slot):
+            closed_at.append(kf_slot)
+            return True
+        return False
+
+    slam._try_close_loop = trial_first
+    cuda_hamming.reset_launches()
+    t0 = time.perf_counter()
+    for i, frame in enumerate(frames):
+        track_device(slam, frame, i)
+        if closed_at:
+            break
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if "refused" not in out:
+        raise AssertionError("branches (c): no keyframe's candidate reached the projection count")
+    r = out["refused"]
+    print(f"branches (c), a Sim3 refused after the projection count, on phase 10's circuit: "
+          f"keyframe {out['kf']} (frame {out['frame']}), projection count {out['count']} + "
+          f"{out['pairs']} Sim3 pairs, bar min_total_matches {out['bar']}: _try_close_loop "
+          f"returned {r['closed']} in {r['ms']:.2f} ms (host clock with synchronize; {card}), "
+          f"map banks torch.equal {r['map_equal']}, no GBA {r['gba_unchanged']}; then the real "
+          f"call with the config and loop_state put back closed the loop at keyframe "
+          f"{closed_at[0] if closed_at else None}, gba_runs {slam.stats['gba_runs']}; frames "
+          f"0-{slam.frame_id} in {seconds:.1f} s; launches {dict(cuda_hamming.launches)}")
+    if closed_at != [out["kf"]] or slam.stats["gba_runs"] < 1:
+        raise AssertionError(f"branches (c): the real call closed at {closed_at}, the refused "
+                             f"one at {out['kf']}; gba_runs {slam.stats['gba_runs']}")
+    return dict(cuda_hamming.launches)
+
+
+def _on_loop_worker(slam, fn, timeout: float = 300.0):
+    """``fn()`` on the async system's loop-closing thread and stream, where
+    its ``_try_close_loop`` runs; returns its value, raises its exception."""
+    box, done = {}, threading.Event()
+    own = "_try_close_loop" in vars(slam)
+    inner = slam._try_close_loop
+
+    def run(kf_slot):
+        try:
+            box["value"] = fn()
+        except BaseException as e:
+            box["error"] = e
+        finally:
+            done.set()
+        return False
+
+    slam._try_close_loop = run
+    try:
+        slam.mapper.submit_loop(-1)
+        if not done.wait(timeout):
+            raise AssertionError(f"the loop worker did not run the call in {timeout} s")
+    finally:
+        if own:
+            slam._try_close_loop = inner
+        else:
+            del slam._try_close_loop
+    if "error" in box:
+        raise box["error"]
+    return box.get("value")
+
+
+def _measured_loop(slam, kf_cur: int, kf_loop: int, turn: float, shift: float):
+    """A loop measurement between two keyframes: their relative pose in the
+    map, turned by ``turn`` rad about y and shifted by ``shift`` m, as drift
+    would leave it (scale 1, the circuit is stereo)."""
+    T = slam.map.kf_pose.cpu().numpy()
+    rel = T[kf_cur] @ np.linalg.inv(T[kf_loop])
+    c, s = np.cos(turn), np.sin(turn)
+    R = np.asarray([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32) @ rel[:3, :3]
+    return R.astype(np.float32), (rel[:3, 3] + np.float32([shift, 0.0, shift])).astype(
+        np.float32), 1.0
+
+
+def _gba_and_scatter(slam, card: str) -> dict:
+    """Phase 17 (d) and (e) on phase 13 (b)'s circuit system after its loop,
+    before its shutdown.  (d) a GBA launched from the loop thread with its
+    LM chunks slowed (``slam._lm_chunk``), then what a second loop's
+    ``_try_close_loop`` does, on the loop thread and stream:
+    ``_abort_running_gba``, ``_correct_loop`` under the writer lock, a new
+    ``_launch_gba``, whose chunks wait until the map has been read.  Asserts
+    ``gba_aborted`` +1, the keyframe poses torch.equal to the corrected ones
+    after the aborted GBA ended, the new GBA merged, the map finite.  (e) a
+    keyframe submitted to the mapping worker, held after its local BA's
+    gather while a ``_correct_loop`` lands from the loop thread: asserts
+    ``local_ba_discarded`` +1, ``map_epoch`` moved, the corrected poses
+    torch.equal after the scatter was dropped.  Returns the launches."""
+    from refactored_orb_slam2_tpu_torch.ops import cuda_hamming
+
+    cuda_hamming.reset_launches()
+    edges = slam.map.kf_loop_edges.cpu().numpy()
+    kf_loop = int(min(k for k in range(edges.shape[0]) if (edges[k] >= 0).any()))
+    kf_cur = int(np.nonzero(slam.map.kf_valid.cpu().numpy())[0].max())
+    stats0 = dict(slam.stats)
+
+    # ---- (d) a GBA stopped by a newer loop
+    order, started, gate = {}, threading.Event(), threading.Event()
+    chunk = slam._lm_chunk
+
+    def slowed(*args, **kwargs):
+        k = order.setdefault(threading.current_thread(), len(order))
+        if k == 0:
+            started.set()
+            time.sleep(0.2)
+        else:
+            gate.wait(300)
+        return chunk(*args, **kwargs)
+
+    slam._lm_chunk = slowed
+    t0 = time.perf_counter()
+    _on_loop_worker(slam, lambda: slam._launch_gba(kf_cur))
+    first = slam._gba_thread
+    if not started.wait(300):
+        raise AssertionError("branches (d): the first GBA did not start")
+    R, t, s = _measured_loop(slam, kf_cur, kf_loop, 0.01, 0.03)
+
+    def second_loop():
+        slam._abort_running_gba()
+        with slam._map_lock():
+            slam._correct_loop(kf_cur, kf_loop, R, t, s)
+            corrected = slam.map.kf_pose.clone()
+        slam._launch_gba(kf_cur)
+        slam._sync_stream()
+        return corrected
+
+    corrected = _on_loop_worker(slam, second_loop)
+    second = slam._gba_thread
+    first.join(timeout=300)
+    held = torch.equal(slam.map.kf_pose, corrected)
+    aborted = slam.stats["gba_aborted"] - stats0["gba_aborted"]
+    epoch = slam.map_epoch
+    gate.set()
+    second.join(timeout=300)
+    slam._lm_chunk = chunk
+    d_ms = (time.perf_counter() - t0) * 1e3
+    merged = not torch.equal(slam.map.kf_pose, corrected)
+    finite = bool(torch.isfinite(slam.map.kf_pose).all() and torch.isfinite(slam.map.pt_pos).all())
+    print(f"branches (d), a GBA stopped by a newer loop (keyframes {kf_cur} and {kf_loop}): "
+          f"first GBA alive after its join {first.is_alive()}, gba_aborted +{aborted}, keyframe "
+          f"poses equal to the corrected ones after the aborted GBA ended {held}; the new GBA "
+          f"alive after its join {second.is_alive()}, gba_runs "
+          f"+{slam.stats['gba_runs'] - stats0['gba_runs']}, merged {merged} (map_epoch {epoch} -> "
+          f"{slam.map_epoch}), map finite {finite}; {d_ms:.1f} ms with the slowed chunks "
+          f"(host clock; {card})")
+    if first.is_alive() or second.is_alive() or aborted != 1 or not held:
+        raise AssertionError(f"branches (d): gba_aborted +{aborted}, corrected poses held {held}")
+    if slam.stats["gba_runs"] - stats0["gba_runs"] != 2 or not merged or slam.map_epoch <= epoch:
+        raise AssertionError(f"branches (d): the new GBA did not merge ({slam.stats})")
+    if not finite:
+        raise AssertionError("branches (d): non-finite map after the GBA")
+
+    # ---- (e) a local BA's scatter dropped after a correction
+    gathered, release = threading.Event(), threading.Event()
+    steps = slam._windowed_ba_steps
+
+    def held_after_gather(*args, **kwargs):
+        gen = steps(*args, **kwargs)
+        yield next(gen)                      # the gather
+        gathered.set()
+        release.wait(300)
+        yield from gen
+
+    slam._windowed_ba_steps = held_after_gather
+    slam.loop_closing_enabled = False        # the keyframe goes to no loop call
+    discarded, epoch = slam.stats["local_ba_discarded"], slam.map_epoch
+    t0 = time.perf_counter()
+    try:
+        slam.mapper.submit(kf_cur)
+        if not gathered.wait(300):
+            raise AssertionError("branches (e): the local BA did not gather")
+        R, t, s = _measured_loop(slam, kf_cur, kf_loop, -0.01, 0.02)
+
+        def correction():
+            with slam._map_lock():
+                slam._correct_loop(kf_cur, kf_loop, R, t, s)
+                corrected = slam.map.kf_pose.clone()
+            slam._sync_stream()
+            return corrected
+
+        corrected = _on_loop_worker(slam, correction)
+        release.set()
+        drained = slam.mapper.wait_idle(300)
+    finally:
+        release.set()
+        del slam._windowed_ba_steps
+        slam.loop_closing_enabled = True
+    dropped = slam.stats["local_ba_discarded"] - discarded
+    stands = torch.equal(slam.map.kf_pose, corrected)
+    print(f"branches (e), a local-BA scatter dropped after a correction (keyframe {kf_cur} "
+          f"mapped again, a correction between its gather and its scatter): drained {drained}, "
+          f"local_ba_discarded +{dropped}, map_epoch {epoch} -> {slam.map_epoch}, corrected "
+          f"poses standing {stands}; {(time.perf_counter() - t0) * 1e3:.1f} ms (host clock; "
+          f"{card})")
+    if not drained or dropped != 1 or slam.map_epoch <= epoch or not stands:
+        raise AssertionError(f"branches (e): discarded +{dropped}, epoch {epoch} -> "
+                             f"{slam.map_epoch}, corrected poses standing {stands}")
+    return dict(cuda_hamming.launches)
+
+
+def _pipeline_loss(frames, poses, card: str) -> dict:
+    """Phase 17 (f): phase 4's frames in the JAX bench's mode (cooperative,
+    pipelined at depth 3) on fresh systems, one frame blank (grey 128, depth
+    2 m): frame 7, as tests/test_torch_pipelined.py's blank case, and the
+    frame at which the map first holds 6 keyframes.  Asserts for frame 7
+    the frames lost [7], the decomposed path finding LOST at frame 8 and
+    resetting (the frame behind it dropped) and frame 10 initializing a new
+    map; for the later one a relocalization within 3 frames and at most 3
+    frames lost; in both, the graph's replays equal to the eager step on the
+    three frames after the recovery and one capture.  Returns the launches
+    (the comparisons' taken out)."""
+    from refactored_orb_slam2_tpu_torch import bench
+    from refactored_orb_slam2_tpu_torch.frontend.fused_graph import flat_tensors
+    from refactored_orb_slam2_tpu_torch.ops import cuda_hamming
+    from refactored_orb_slam2_tpu_torch.system import SlamSystem, TrackState
+
+    cfg = rgbd_config()
+    grey = grey_frame(cfg, "cuda")
+    total = dict.fromkeys(cuda_hamming.SOURCES, 0)
+
+    def case(blank_at, n_after):
+        slam = SlamSystem(cfg, device="cuda", **bench.BENCH_MODE)
+        decomposed, lost = [], []
+        track, log = slam._track, slam._log_frame
+
+        def tracked(frame, timestamp):
+            entry = [slam.frame_id, slam.state, slam.n_kf]
+            out = track(frame, timestamp)
+            decomposed.append(tuple(entry + [slam.stats["relocs"]]))
+            return out
+
+        def logged(timestamp, **kw):
+            if kw["lost"]:
+                lost.append(slam.frame_id if kw.get("frame_id") is None else kw["frame_id"])
+            return log(timestamp, **kw)
+
+        slam._track, slam._log_frame = tracked, logged
+        cuda_hamming.reset_launches()
+        blank, compared, unequal, i = None, [], [], 0
+        while i < len(frames) and (blank is None or i < blank + n_after):
+            if blank is None and blank_at(slam, i):
+                blank = i
+            if (blank is not None and blank + 4 <= i < blank + 7 and slam.state == TrackState.OK
+                    and slam._graph is not None and slam._graph.graph is not None):
+                saved = dict(cuda_hamming.launches)
+                inputs = slam._fused_inputs(*frames[i])
+                a = flat_tensors(slam._fused_step(**inputs))
+                b = flat_tensors(slam._graph.run(inputs))
+                compared.append(i)
+                if len(a) != len(b) or not all(torch.equal(x, y) for x, y in zip(a, b)):
+                    unequal.append(i)
+                cuda_hamming.launches.update(saved)      # comparison launches
+            track_device(slam, grey if i == blank else frames[i], i)
+            i += 1
+        slam.flush_pipeline()
+        if not slam.wait_mapping_idle(timeout=300):
+            raise AssertionError("branches (f): mapping did not drain")
+        for name in total:
+            total[name] += cuda_hamming.launches[name]
+        return slam, blank, i, decomposed, lost, compared, unequal
+
+    # ---- frame 7 blank: lost, reset, a new map from frame 10
+    slam, blank, _, decomposed, lost, compared, unequal = case(lambda s, i: i == 7, 8)
+    ids = slam.tracked_frame_ids().tolist()
+    print(f"branches (f), frame 7 blank in the depth-3 pipeline: lost {lost}, decomposed calls "
+          f"(frame, state before, n_kf before, relocs after) {decomposed}, tracked after the "
+          f"reset {ids}, n_kf {slam.n_kf}, graph captures {slam._graph.captures}, replays "
+          f"compared with the eager step at frames {compared}, unequal {unequal} ({card})")
+    lost_state = TrackState.LOST
+    if lost != [7] or [d[0] for d in decomposed if d[1] == lost_state] != [8]:
+        raise AssertionError(f"branches (f): frame 7 blank: lost {lost}, decomposed {decomposed}")
+    if [d[0] for d in decomposed] != [0, 8, 10] or ids[:1] != [10] or slam.n_kf < 1:
+        raise AssertionError(f"branches (f): frame 7 blank: decomposed {decomposed}, tracked {ids}")
+    if compared != [11, 12, 13] or unequal or slam._graph.captures != 1:
+        raise AssertionError(f"branches (f): frame 7 blank: replays compared at {compared}, "
+                             f"unequal {unequal}, captures {slam._graph.captures}")
+    del slam
+
+    # ---- a blank frame once the map holds 6 keyframes: lost, relocalized
+    slam, blank, n_run, decomposed, lost, compared, unequal = case(lambda s, i: s.n_kf >= 6, 10)
+    relocs = [d[0] for d in decomposed if d[1] == lost_state and d[3] > 0]
+    ids = slam.tracked_frame_ids().tolist()
+    print(f"branches (f), frame {blank} blank (n_kf {decomposed[1][2] if len(decomposed) > 1 else '-'} "
+          f"at the loss) in the depth-3 pipeline: lost {lost}, decomposed calls (frame, state "
+          f"before, n_kf before, relocs after) {decomposed}, relocalized at frame "
+          f"{relocs[:1]}, tracked frames {len(ids)} of {n_run} (from {ids[:1]}), n_kf "
+          f"{slam.n_kf}, paths {slam.stats}, graph captures {slam._graph.captures}, replays "
+          f"compared with the eager step at frames {compared}, unequal {unequal} ({card})")
+    if not relocs or relocs[0] > blank + 3 or len(lost) > 3 or blank not in lost:
+        raise AssertionError(f"branches (f): frame {blank} blank: lost {lost}, decomposed "
+                             f"{decomposed}")
+    if compared != [blank + 4, blank + 5, blank + 6] or unequal or slam._graph.captures != 1:
+        raise AssertionError(f"branches (f): frame {blank} blank: replays compared at {compared}, "
+                             f"unequal {unequal}, captures {slam._graph.captures}")
+    print(f"branches (f) launches {total} ({card})")
+    return total
+
+
 def _side_stream_check(wargs, band, margs) -> int:
     """Each kernel launched from a second thread under a stream of its own
     (as the async mode's workers launch them), against its plain version;
@@ -2846,10 +3679,12 @@ def _kernels(card: str) -> list:
     }, **m["fuse"], other_shapes=[m[k] for k in m if k != "fuse"])]
 
 
-def _launch_rows(kernels: list, by_path: dict, reloc: list) -> None:
+def _launch_rows(kernels: list, by_path: dict, reloc: list, rescue: dict | None = None) -> None:
     """Each kernel row's launches per path and in all, and phase 9's
     rescue-search comparisons in its error; raises if a kernel was not
-    launched on a path that must launch it."""
+    launched on a path that must launch it.  ``rescue`` (phase 17 (b): path
+    -> masked launches of its rescue rounds by "N1xN2") gives the masked
+    kernel's rescue rows of phase 3 their ``launches``."""
     # localization-only mode freezes the map, so it has no masked search; a
     # relocalization needs one only for a rescue round or a new keyframe; the
     # sharded BA (phase 14) has no Hamming kernel, as in the JAX package
@@ -2860,6 +3695,11 @@ def _launch_rows(kernels: list, by_path: dict, reloc: list) -> None:
         row["launches"] = sum(row["launches_by_path"].values())
         if row["name"] == "hamming_best2":     # phase 9's rescue-search comparisons
             row["max_abs_err"] = max([row["max_abs_err"]] + [r["err"] for r in reloc])
+            for path, name in (("rgbd", "rescue"), ("stereo", "rescue, stereo")):
+                for shape_row in row["other_shapes"]:
+                    size = shape_row["shape"].split()[-1]
+                    if shape_row["shape"] == f"{name} {size}" and path in (rescue or {}):
+                        shape_row["launches"] = rescue[path].get(size, 0)
         idle = [path for path, n in row["launches_by_path"].items()
                 if n == 0 and (path, row["name"]) not in exempt]
         if idle:
@@ -2947,10 +3787,26 @@ def main(mode: str = "") -> None:
         print(card)
         return
 
-    # ---- 5. where the time goes
-    slam2 = SlamSystem(cfg, device="cuda")
-    _breakdown(slam2, frames, r["steady_ms"], r["n_kf"], card)
-    del slam2
+    # --branches-only: phase 17 and the phases whose systems it reuses (4, 6,
+    # 9 and 7 for (b), 13 (b) for (d) and (e))
+    only = mode == "--branches-only"
+    branches = dict.fromkeys(("window_match", "hamming_best2"), 0)
+    rescue = {}
+
+    def add(launches):
+        for name, n in launches.items():
+            branches[name] += n
+
+    def rescued(slam, frames, path):
+        out = _rescue(slam, frames, poses, path, card)
+        add(out["launches"])
+        rescue[path] = out["shapes"]
+
+    if not only:
+        # ---- 5. where the time goes
+        slam2 = SlamSystem(cfg, device="cuda")
+        _breakdown(slam2, frames, r["steady_ms"], r["n_kf"], card)
+        del slam2
 
     # ---- 6. localization-only on the RGB-D system's map
     by_path["localization"] = _localization(slam, frames, card)
@@ -2961,51 +3817,82 @@ def main(mode: str = "") -> None:
     reloc.append(_relocalization(slam, frames, poses, "localization",
                                  N_FRAMES + N_LOCALIZATION + 6, card))
     slam.deactivate_localization_mode()
+    # ---- 17 (b). its rescue rounds and reject on the RGB-D system
+    rescued(slam, frames, "rgbd")
 
-    # ---- 11. I/O and the drivers: that system's map saved and loaded, the
-    # dataset driver's loop, the bench
-    by_path["io"] = _io(slam, frames, poses, r["median_ms"], card)
+    if not only:
+        # ---- 11. I/O and the drivers: that system's map saved and loaded,
+        # the dataset driver's loop, the bench
+        by_path["io"] = _io(slam, frames, poses, r["median_ms"], card)
     del slam
 
-    # ---- 12. the fused step's graph, pipelined dispatch, cooperative mapping
-    by_path["pipelined"], coop = _pipelined(frames, poses, r, card)
-    # ---- 13 (a). the async mode on the same frames
-    room = _async_room(frames, poses, r, coop, card)
+    if not only:
+        # ---- 12. the fused step's graph, pipelined dispatch, cooperative
+        # mapping; 13 (a). the async mode on the same frames
+        by_path["pipelined"], coop = _pipelined(frames, poses, r, card)
+        room = _async_room(frames, poses, r, coop, card)
+    # ---- 17 (f). a loss inside a depth-3 pipeline; (g). a full map's checkpoint
+    add(_pipeline_loss(frames, poses, card))
     del frames
+    _full_checkpoint(card)
 
-    # ---- 7 and 8. the stereo and the monocular sequence, each with phase 9
+    # ---- 7 and 8. the stereo and the monocular sequence, each with phase 9;
+    # 17 (b) on the stereo system
     for cfg, bound in ((stereo_config(), STEREO_ATE_BOUND_M), (mono_config(), MONO_ATE_BOUND_M)):
+        if only and cfg.sensor != "stereo":
+            continue
         frames = rendered(cfg)
         slam, r = _sequence(cfg, frames, poses, bound, card)
         by_path[cfg.sensor] = r["launches"]
         align = (sim3_alignment(slam.camera_centers(), gt_centres(poses)[slam.tracked_frame_ids()])
                  if cfg.sensor == "monocular" else None)
         reloc.append(_relocalization(slam, frames, poses, cfg.sensor, N_FRAMES, card, align))
+        if cfg.sensor == "stereo":
+            rescued(slam, frames, "stereo")
         del slam
-        stages = SlamSystem(cfg, device="cuda")
-        _frame_stages(stages, frames, card)
-        del stages
-        _bench_mode(cfg, frames, poses, card)
+        if not only:
+            stages = SlamSystem(cfg, device="cuda")
+            _frame_stages(stages, frames, card)
+            del stages
+            _bench_mode(cfg, frames, poses, card)
         del frames
 
-    # ---- 10. the street circuit: a loop closed, corrected and adjusted
-    by_path["loop"], gba_ms = _circuit(card)
-    # ---- 13 (b). the street circuit in async mode: the GBA on its thread
-    circuit = _async_circuit(card, gba_ms)
-    by_path["async"] = {name: room[name] + circuit[name] for name in room}
-    # ---- 14. distribution; 15. the scale demo at full capacity
-    by_path["dist"], _ = _dist(card)
-    by_path["scale"] = _scale(card, gba_ms)
-    # ---- 16. BASELINE.md's fixtures written, read and tracked by the port
-    by_path["datasets"] = _datasets(card, full=False)
+    gba_ms = None
+    if not only:
+        # ---- 10. the street circuit: a loop closed, corrected and adjusted
+        by_path["loop"], gba_ms = _circuit(card)
+    # ---- 13 (b). the street circuit in async mode: the GBA on its thread;
+    # 17 (d) and (e) on its system before the shutdown
+    circuit = _async_circuit(card, gba_ms, branches)
+    by_path["async"] = (circuit if only else
+                        {name: room[name] + circuit[name] for name in room})
+    # ---- 17 (c). the circuit again, a Sim3 refused after the projection
+    # count before its loop; (a) the stereo and the monocular room orbit in
+    # async mode
+    add(_refused_sim3(card))
+    for cfg in (stereo_config(), mono_config()):
+        frames = rendered(cfg)
+        add(_async_sensor(cfg, frames, poses, card))
+        del frames
+    if not only:
+        # ---- 14. distribution; 15. the scale demo at full capacity
+        by_path["dist"], _ = _dist(card)
+        by_path["scale"] = _scale(card, gba_ms)
+        # ---- 16. BASELINE.md's fixtures written, read and tracked by the port
+        by_path["datasets"] = _datasets(card, full=False)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     by_path["relocalization"] = {name: sum(r["launches"][name] for r in reloc)
                                  for name in by_path["rgbd"]}
+    by_path["branches"] = branches
+    print(f"branches: launches {branches}; the rescue rounds' masked launches by shape "
+          f"{rescue} ({card})")
 
-    _launch_rows(kernels, by_path, reloc)
+    _launch_rows(kernels, by_path, reloc, rescue)
     print(json.dumps({"kernels": kernels}))
     print(card)
+    if only:
+        return
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))
@@ -3017,10 +3904,12 @@ if __name__ == "__main__":
     # --circuit-only runs phases 1-3 and 10, --io-only phases 1-4 and 11,
     # --pipelined-only phases 1-4 and 12, --async-only phases 1-4 and 13,
     # --dist-only phases 1-3 and 14, --scale-only phases 1-3 and 15,
-    # --datasets-only phases 1-3 and 16 at BASELINE.md's full lengths, and
-    # each prints the same two lines
+    # --datasets-only phases 1-3 and 16 at BASELINE.md's full lengths,
+    # --branches-only phases 1-4, 6, 7, 9, 13 (b) and 17, and each
+    # prints the same two lines
     modes = ("--kernels-only", "--circuit-only", "--io-only", "--pipelined-only",
-             "--async-only", "--dist-only", "--scale-only", "--datasets-only")
+             "--async-only", "--dist-only", "--scale-only", "--datasets-only",
+             "--branches-only")
     if sys.argv[1:] not in [[]] + [[m] for m in modes]:
         _fail(f"usage: python3 chip_smoke.py [{' | '.join(modes)}] (got {sys.argv[1:]})")
     main(sys.argv[1] if sys.argv[1:] else "")

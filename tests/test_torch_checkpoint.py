@@ -241,3 +241,38 @@ def test_both_relocalize_the_revisit_after_a_cross_load(cross):
     T = cross["T"]
     c_true = -(T[:3, :3].T @ T[:3, 3])
     assert np.linalg.norm(-(pt[:3, :3].T @ pt[:3, 3]) - c_true) < 0.05
+
+
+def test_full_bank_round_trip(tmp_path):
+    """Every keyframe and point slot valid at a small capacity (8 x 256 x 4),
+    the banks drawn from a seed (``chip_smoke.fill_full_map``, as phase 17 (g)
+    fills the card's 512 x 65536 x 32 map): the port's file loads back bit
+    for bit, and the JAX package's ``load_map`` restores every field, the
+    vocabulary and the database from it."""
+    import chip_smoke
+    from test_torch_smoke_reference import reference_config
+
+    s = TSlam(tiny_cfg(), device="cpu")
+    chip_smoke.fill_full_map(s, seed=17)
+    assert bool(s.map.kf_valid.all()) and bool(s.map.pt_valid.all())
+    assert (s.n_kf, s.n_pt) == (8, 256) and bool(s.db.valid.all())
+    path = str(tmp_path / "full.npz")
+    TC.save_map(path, s)
+    s2 = TSlam(tiny_cfg(), device="cpu")
+    TC.load_map(path, s2)
+    assert_same_state(s, s2)
+    with np.load(path, allow_pickle=False) as z:
+        assert (z["map_kf_desc"] >= 2**31).any() and (z["map_pt_desc"] >= 2**31).any()
+
+    j = JSlam(reference_config(tiny_cfg()))
+    JC.load_map(path, j)
+    for name in FIELDS:
+        x = getattr(s.map, name).numpy()
+        if name in ("kf_desc", "pt_desc"):
+            x = x.view(np.uint32)
+        np.testing.assert_array_equal(np.asarray(getattr(j.map, name)), x, err_msg=name)
+    assert (j.n_kf, j.n_pt, j.ref_kf) == (s.n_kf, s.n_pt, s.ref_kf)
+    np.testing.assert_array_equal(np.asarray(j.vocab.words), s.vocab.words.numpy().view(np.uint32))
+    np.testing.assert_array_equal(np.asarray(j.vocab.idf), s.vocab.idf.numpy())
+    np.testing.assert_array_equal(np.asarray(j.db.bow), s.db.bow.numpy())
+    np.testing.assert_array_equal(np.asarray(j.db.valid), s.db.valid.numpy())

@@ -424,6 +424,98 @@ def test_async_tracking_on_card(cuda):
     assert ate[True] < max(2 * ate[False], 0.01), ate
 
 
+def test_mono_async_lockstep_on_card_agrees_with_cpu(cuda):
+    """The 320x240 room frames 0-23 without depth through the async mode on
+    the card and on the CPU, in lockstep (``wait_mapping_idle`` after every
+    frame, so that no keyframe decision depends on the threads' timing):
+    the two-view initializer accepts at the same frame (its minimal sets
+    come from a CPU generator seeded with the frame id on either device) and
+    the keyframes are made at the same frames; on the card the initializer's
+    map writes and BA run on the tracker's stream beside the live workers,
+    and the mapping thread launches the masked kernel on its own stream."""
+    cfg = SystemConfig(
+        sensor="monocular",
+        camera=CameraConfig(fx=258.65, fy=258.25, cx=159.3, cy=127.65, bf=0.0,
+                            width=320, height=240),
+        orb=ORBConfig(n_features=500, n_levels=4),
+        map=MapConfig(max_keyframes=64, max_points=16384, max_obs_per_point=8),
+    )
+    world = W.scene_room(seed=11)
+    poses = W.traj_room_orbit(160, seed=5, span=0.45 * np.pi)[:24]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        slam = SlamSystem(cfg, device=dev, async_mapping=True)
+        slam.loop_closing_enabled = False
+        threads = slam.mapper.threads()
+        rng = np.random.default_rng(0)
+        cuda_hamming.reset_launches()
+        tracked = []
+        for i, T in enumerate(poses):
+            img = world.render_device(T, slam.cam, noise=2.0, rng=rng, device=dev)
+            tracked.append(slam.track_monocular_device(img, i / 30.0) is not None)
+            assert slam.wait_mapping_idle(timeout=300), (dev, i)
+        by_thread = {k: dict(v) for k, v in cuda_hamming.launches_by_thread.items()}
+        slam.shutdown()
+        assert not any(t.is_alive() for t in threads)
+        out[dev] = (tracked, slam.map.kf_frame_id[:slam.n_kf].tolist(), slam, by_thread)
+    (t_cpu, k_cpu, s_cpu, _), (t_gpu, k_gpu, s_gpu, by_thread) = out["cpu"], out["cuda"]
+    assert t_gpu == t_cpu and sum(t_gpu) >= 0.9 * (len(poses) - t_gpu.index(True))
+    assert k_gpu == k_cpu and len(k_gpu) >= 3
+    assert by_thread["local-mapping"]["hamming_best2"] >= 1
+    assert np.isfinite(s_gpu.frame_poses()).all()
+
+
+def test_rescue_rounds_on_card_equal_plain(cuda):
+    """``_relocalize`` on the 320x240 room map (frames 0-5) with frame 5's
+    view, against keyframe 0 (frame 0's own view keeps all its matches and
+    leaves a rescue nothing to add), called
+    again with the accept bar one above its first pose-LM's inliers, as
+    chip_smoke.py's phase 17 (b) raises it: a rescue round runs, its masked
+    searches launch the kernel at (keyframe slots x frame slots) with
+    candidate pairs, and the kernel equals its plain version on the tensors
+    each round gave it."""
+    import dataclasses
+
+    cfg = SystemConfig(
+        sensor="rgbd",
+        camera=CameraConfig(fx=258.65, fy=258.25, cx=159.3, cy=127.65, bf=20.0,
+                            width=320, height=240),
+        orb=ORBConfig(n_features=500, n_levels=4),
+        map=MapConfig(max_keyframes=24, max_points=4096, max_obs_per_point=8),
+    )
+    world = W.scene_room(seed=11)
+    poses = W.traj_room_orbit(160, seed=5, span=0.45 * np.pi)[:6]
+    slam = SlamSystem(cfg, device="cuda")
+    slam.loop_closing_enabled = False
+    rng = np.random.default_rng(0)
+    frames = [world.render_device(T, slam.cam, want_depth=True, noise=2.0, rng=rng,
+                                  device="cuda") for T in poses]
+    for i, f in enumerate(frames):
+        assert slam.track_rgbd_device(*f, i / 30.0) is not None
+    frame = slam._build_frame(*frames[5])
+    ok, _, _ = slam._relocalize(frame)
+    acc = [r for r in slam.reloc_log if r["accepted"]]
+    assert ok and acc
+    slam.cfg = dataclasses.replace(cfg, tracking=dataclasses.replace(
+        cfg.tracking, min_inliers_reloc=acc[0]["lm_inliers"][0] + 1))
+    kept, best2 = [], cuda_hamming.hamming_best2
+    cuda_hamming.hamming_best2 = lambda *a: kept.append(a) or best2(*a)
+    before = cuda_hamming.launches["hamming_best2"]
+    try:
+        slam._relocalize(frame)
+    finally:
+        cuda_hamming.hamming_best2 = best2
+    rounds = max(r["rescue_rounds"] for r in slam.reloc_log)
+    assert rounds >= 1 and len(kept) == rounds
+    assert cuda_hamming.launches["hamming_best2"] - before == rounds
+    n = slam.n_feat_slots
+    assert sum(int(mask.sum()) for *_, mask in kept) > 0
+    for a, b, mask in kept:
+        assert (a.shape[0], b.shape[0]) == (n, n)
+        _assert_equal_to_plain(best2(a, b, mask), cuda_hamming.hamming_best2_reference(a, b, mask),
+                               n)
+
+
 def test_masked_kernel_from_a_worker_thread_on_a_side_stream(cuda):
     """hamming_best2 launched from another thread under its own stream, as
     the async mode's workers launch it: equal to its plain version, counted

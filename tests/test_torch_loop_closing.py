@@ -311,3 +311,86 @@ def test_global_ba_with_writeback_equal(built):
     np.testing.assert_allclose(t.map.pt_pos.numpy(), np.asarray(j.map.pt_pos), atol=2e-3)
     moved = np.abs(t.map.kf_pose.numpy() - built["map"].kf_pose).max()
     assert moved > 1e-6
+
+
+def test_sim3_refused_by_the_projection_count(built, monkeypatch):
+    """``_try_close_loop`` with a candidate whose Sim3 ``compute_sim3``
+    accepts, and ``min_total_matches`` one above what the projection count
+    gives it (LoopClosing.cc:330-373): refused on both packages, after the
+    count and before any correction.  Detection is staged (a straight path
+    has no loop): both ``detect`` calls give the candidate, with the loop
+    gate at ``kf_gap = 2`` so that the run's keyframes reach it, and the
+    port's RANSAC takes the JAX package's sets.  The count is equal on
+    both; the map, ``loop_state`` and the counters are unchanged, and no
+    GBA ran."""
+    import dataclasses
+
+    from refactored_orb_slam2_tpu import system as jsystem
+    from refactored_orb_slam2_tpu_torch import system as tsystem
+
+    j, t = _systems(built)
+    j.db = built["jdb"]
+    n = built["n_kf"]
+    key = jax.random.PRNGKey(built["frame_id"])
+    # the first staged pair whose Sim3 the JAX package accepts
+    kf_cur, kf_cand, sets = next(
+        (c, m, s) for c, m in _pairs(built)
+        for s in [_jax_compute(built, j, c, m, True, key)[2]]
+        if JLC.compute_sim3(j.map, j.cam, c, m, fix_scale=True, key=key, scale_factor=1.2,
+                            n_levels=4)[0])
+    counts = {"jax": [], "port": []}
+
+    def staged_detect(*args, **kwargs):
+        return [kf_cand]
+
+    def counted(fn, name):
+        def run(*args):
+            n_proj = fn(*args)
+            counts[name].append(int(n_proj))
+            return n_proj
+        return run
+
+    t_compute = TLC.compute_sim3
+
+    def with_jax_sets(state, cam, cur, cand, *, generator=None, **kwargs):
+        assert generator is not None and generator.initial_seed() == built["frame_id"]
+        return t_compute(state, cam, cur, cand, sets=sets, **kwargs)
+
+    monkeypatch.setattr(jsystem.LC, "detect", staged_detect)
+    monkeypatch.setattr(tsystem.LC, "detect", staged_detect)
+    monkeypatch.setattr(tsystem.LC, "compute_sim3", with_jax_sets)
+    monkeypatch.setattr(jsystem.LC, "count_loop_projection_matches",
+                        counted(JLC.count_loop_projection_matches, "jax"))
+    monkeypatch.setattr(tsystem.LC, "count_loop_projection_matches",
+                        counted(TLC.count_loop_projection_matches, "port"))
+    # the Sim3's matched pairs, which the bar counts beside the projections
+    ok, *_, pairs = t_compute(t.map, t.cam, kf_cur, kf_cand, fix_scale=True, sets=sets,
+                              scale_factor=1.2, n_levels=4)
+    assert ok and len(pairs) >= 20
+    # a first pass finds the count, the refused pass sits one above it
+    for s in (j, t):
+        s.cfg = dataclasses.replace(s.cfg, loop=dataclasses.replace(s.cfg.loop, kf_gap=2,
+                                                                    min_total_matches=10**6))
+        assert s._try_close_loop(kf_cur) is False
+    assert counts["jax"] == counts["port"] and len(counts["port"]) == 1
+    bar = counts["port"][0] + len(pairs) + 1
+    banks = lambda s: {k: np.asarray(v) for k, v in (
+        s.map._asdict().items() if s is j else vars(s.map).items())}
+    before = {name: banks(s) for name, s in (("jax", j), ("port", t))}
+    states = {name: (list(s.loop_state.consistent_groups), s.loop_state.last_loop_kf,
+                     dict(s.stats)) for name, s in (("jax", j), ("port", t))}
+    epochs = (t.gba_epoch, t.map_epoch)
+    for name, s in (("jax", j), ("port", t)):
+        s.cfg = dataclasses.replace(s.cfg, loop=dataclasses.replace(s.cfg.loop,
+                                                                    min_total_matches=bar))
+        assert s._try_close_loop(kf_cur) is False, name
+        after = banks(s)
+        assert after.keys() == before[name].keys()
+        for field, a in after.items():
+            np.testing.assert_array_equal(a, before[name][field], err_msg=f"{name}: {field}")
+        assert (list(s.loop_state.consistent_groups), s.loop_state.last_loop_kf,
+                dict(s.stats)) == states[name]
+        assert s.stats["gba_runs"] == 0
+    assert counts["jax"] == counts["port"] and len(counts["port"]) == 2
+    assert t._gba_thread is None and (t.gba_epoch, t.map_epoch) == epochs
+    assert not (t.map.kf_loop_edges >= 0).any()

@@ -190,6 +190,75 @@ def test_blank_frame_in_depth_3_pipeline(frames):
     assert decomposed[-1][0] == 10 and tracked_ids == [10, 11] and n_kf >= 1
 
 
+def _watched_run(slam, frames):
+    """Track ``frames`` through ``track_rgbd``; returns the decomposed
+    ``_track`` calls (frame id, state, n_kf at the call), the frames logged
+    lost and the tracked frame ids once the frames in flight are committed."""
+    decomposed, lost, track, log = [], [], slam._track, slam._log_frame
+
+    def tracked(frame, timestamp):
+        decomposed.append((slam.frame_id, slam.state, slam.n_kf))
+        return track(frame, timestamp)
+
+    def logged(timestamp, **kw):
+        if kw["lost"]:
+            lost.append(slam.frame_id if kw.get("frame_id") is None else kw["frame_id"])
+        return log(timestamp, **kw)
+
+    slam._track, slam._log_frame = tracked, logged
+    for i, (img, depth) in enumerate(frames):
+        slam.track_rgbd(img, depth, i * 0.1)
+    return decomposed, lost, slam.tracked_frame_ids().tolist()
+
+
+# the later blank frame: the tests/test_torch_reloc.py scenario (8 cm
+# steps, a keyframe every frame or two), whose system holds more than 5
+# keyframes at frame 12, so that a loss there relocalizes instead of
+# resetting
+LATE_BLANK, N_LATE = 12, 20
+
+
+def test_later_blank_frame_in_depth_3_pipeline_relocalizes():
+    """Frame 12 blank: its commit at frame 15's call loses it, and frame 13,
+    in flight behind it, finds the system lost with more than 5 keyframes
+    and relocalizes (Tracking.cc:421-428 resets only a younger map).  The
+    state is OK again when the flush reaches frame 14, so its record is
+    committed as it was dispatched (ROADMAP.md, faults in the reference),
+    frame 15, the call's own, takes the decomposed path, and frame 16 is a
+    fused one again.  Alike on both packages, the port with the JAX
+    package's EPnP sets."""
+    from refactored_orb_slam2_tpu.utils.synthetic import SyntheticWorld
+    from test_torch_epnp import jax_sets_injected
+    from test_torch_reloc import CFG as RCFG, TCFG as RTCFG, WORLD as RWORLD, lateral
+
+    world = SyntheticWorld.create(**RWORLD)
+    cam = TSlam(RTCFG, device="cpu").cam
+    rng = np.random.default_rng(9)
+    frames = []
+    for i, T in enumerate(lateral(N_LATE)):
+        img, depth = world.render(T, cam, noise=2.0, rng=rng), world.render_depth(T, cam)
+        if i == LATE_BLANK:
+            img, depth = np.full_like(img, 128.0), np.full_like(depth, 2.0)
+        frames.append((img, depth))
+    out = {}
+    for package in ("jax", "port"):
+        slam = JSlam(RCFG, **COOP) if package == "jax" else TSlam(RTCFG, device="cpu", **COOP)
+        slam.loop_closing_enabled = False
+        with jax_sets_injected():
+            decomposed, lost, tracked_ids = _watched_run(slam, frames)
+        out[package] = (decomposed, lost, tracked_ids, slam.stats["relocs"],
+                        slam.stats["reloc_rejects"])
+    assert out["port"] == out["jax"]
+    decomposed, lost, tracked_ids, relocs, rejects = out["port"]
+    assert lost == [LATE_BLANK] and relocs == 1 and rejects == 0
+    lost_state = tsystem.TrackState.LOST
+    assert [fid for fid, state, n_kf in decomposed if state == lost_state] == [LATE_BLANK + 1]
+    # frame 0 initialized the map
+    assert [fid for fid, _, _ in decomposed] == [0, LATE_BLANK + 1, LATE_BLANK + 3]
+    assert min(n_kf for _, _, n_kf in decomposed[1:]) > 5
+    assert tracked_ids == [i for i in range(N_LATE) if i != LATE_BLANK]
+
+
 def test_wait_mapping_idle_and_shutdown_drain(frames):
     slam = _system("port", **COOP)
     for i, (img, depth) in enumerate(frames[:9]):
