@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--kernels-only | --circuit-only | --io-only | --pipelined-only |
                            --async-only | --dist-only | --scale-only | --datasets-only |
-                           --branches-only]
+                           --branches-only | --async-circuit-only]
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
 
@@ -159,8 +159,16 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    at most 2 lost, one loop edge, a GBA run and merged, the rigidly aligned
    ATE under CIRCUIT_ATE_BOUND_M; the keyframes and points made while the
    GBA ran (moved by its merge along the spanning tree) and its wall time
-   beside phase 10's synchronous one.  Both kernels must launch on this path
-   ("async": (a) and (b)).
+   beside phase 10's synchronous one.  The async mode detects loops with
+   ORB-SLAM2's own DetectLoop (backend/loop_closing.py::detect_orbslam2).
+   The run's schedule (each keyframe decision with the mapper's state, each
+   local BA's LM chunks, each loop detection's mapping progress and
+   KeyFrameDB) is printed as one JSON line and, with each detection's trace
+   (minScore, scored slots, candidates, consistent groups, Sim3 outcomes),
+   written under chiprun_out/async_circuit/; tests/loop_schedule.py
+   replays such a schedule on the CPU.  Both kernels must launch on this
+   path ("async": (a) and (b)).  --async-circuit-only runs phases 1-3 and
+   (b)'s held run.
 14. distribution — the point-sharded global BA (parallel/dist_ba.py,
    parallel/multihost.py).  (a) On a synthesized map at the card's GBA size
    (512 keyframes x 65536 points x 32 slots, the port of
@@ -2226,12 +2234,34 @@ def _paced_async_run(cfg, frames, period: float, hooks=None, map_delay: float = 
 def _gba_and_loop_log(slam, run):
     """Phase 13 (b)'s records of a paced async run: each GBA's wall time on
     its thread with the n_kf of its snapshot (``gba``), the keyframes and
-    points each merge moved (``merges``), and each keyframe whose loop
-    detection gave candidates, with their Sim3 outcomes (``detections``)."""
-    from refactored_orb_slam2_tpu_torch import system
+    points each merge moved (``merges``), and the run's schedule and loop
+    trace, read by ``_schedule_of`` and ``_trace_of``:
 
-    gba, merges, detections = run["gba"], run["merges"], run["detections"] = [], [], []
+    - ``decisions``: one row per keyframe decision, [frame, inserted,
+      mapper idle, refused by the backlog window, the newest keyframe whose
+      mapping had ended, the keyframe being mapped (-1: none), the mapping
+      steps it had done];
+    - ``ba_chunks``: [keyframe, LM chunks its local BA ran] (3 when it ran
+      to its end; an ``abort_ba`` stops it after 2);
+    - ``checks``: the record ``detect_orbslam2`` keeps of each loop
+      detection past the keyframe gap (the KeyFrameDB's slots, the
+      connected keyframes, minScore, the scored slots, the candidates, the
+      groups, the consistent candidates), with each consistent
+      candidate's Sim3 outcome (``sim3``), the newest keyframe whose
+      mapping had ended when the loop call began (``mapped``) and n_kf.
+
+    Host counters and the records detection makes anyway: no device read
+    of its own."""
+    from refactored_orb_slam2_tpu_torch import system
+    from refactored_orb_slam2_tpu_torch.utils import telemetry
+
+    gba, merges = run["gba"], run["merges"] = [], []
+    decisions, ba_chunks, checks = run["decisions"], run["ba_chunks"], run["checks"] = [], [], []
+    progress = {"mapped": -1, "kf": -1, "step": 0, "chunks": 0}
     worker, merge = slam._gba_worker, slam._merge_gba_result
+    steps, need, chunk = slam._mapping_steps, slam._need_new_keyframe, slam._lm_chunk
+    close = slam._try_close_loop
+    detect, sim3 = system.LC.detect_orbslam2, system.LC.compute_sim3
 
     def timed_gba(snapshot, epoch, n_kf_snap, n_pt_snap, iters):
         t0 = time.perf_counter()
@@ -2240,32 +2270,109 @@ def _gba_and_loop_log(slam, run):
         gba.append(((time.perf_counter() - t0) * 1e3, n_kf_snap))
 
     def counted_merge(snapshot, result, n_kf_snap, n_pt_snap):
+        # what the merge moves along the spanning tree: made while it ran
         merges.append((slam.n_kf - n_kf_snap, slam.n_pt - n_pt_snap))
         merge(snapshot, result, n_kf_snap, n_pt_snap)
 
-    detect, sim3 = system.LC.detect, system.LC.compute_sim3
+    def stepped(kf_slot):
+        progress.update(kf=kf_slot, step=0, chunks=0)
+        for _ in steps(kf_slot):
+            progress["step"] += 1
+            yield
+        ba_chunks.append([kf_slot, progress["chunks"]])
+        progress.update(mapped=kf_slot, kf=-1, step=0)
 
-    def logged_detect(state, db, kf_slot, *args, **kwargs):
-        cands = detect(state, db, kf_slot, *args, **kwargs)
-        if cands:
-            detections.append([kf_slot, list(cands), []])
+    def counted_chunk(*args, **kwargs):
+        if threading.current_thread().name == "local-mapping":
+            progress["chunks"] += 1
+        return chunk(*args, **kwargs)
+
+    def decided(*args, **kwargs):
+        idle, warned = slam.mapper.idle, telemetry.get("warn.mapping_backlog")
+        at = [progress["mapped"], progress["kf"], progress["step"]]
+        out = need(*args, **kwargs)
+        refused = telemetry.get("warn.mapping_backlog") - warned
+        fid = kwargs.get("frame_id")
+        decisions.append([slam.frame_id if fid is None else fid, int(out), int(idle),
+                          int(refused)] + at)
+        return out
+
+    def logged_close(kf_slot):
+        at = (progress["mapped"], slam.n_kf)
+        closed = close(kf_slot)
+        if checks and checks[-1]["kf"] == kf_slot:
+            checks[-1].update(mapped=at[0], n_kf=at[1])
+        return closed
+
+    def logged_detect(*args, **kwargs):
+        rec = {}
+        cands = detect(*args, record=rec, **kwargs)
+        if rec:
+            checks.append(dict(rec, sim3=[]))
         return cands
 
     def logged_sim3(state, cam, kf_cur, kf_cand, **kwargs):
         out = sim3(state, cam, kf_cur, kf_cand, **kwargs)
-        if detections and detections[-1][0] == kf_cur:
-            detections[-1][2].append(bool(out[0]))
+        if checks and checks[-1]["kf"] == kf_cur:
+            checks[-1]["sim3"].append(int(bool(out[0])))
         return out
 
     slam._gba_worker, slam._merge_gba_result = timed_gba, counted_merge
-    system.LC.detect, system.LC.compute_sim3 = logged_detect, logged_sim3
+    slam._mapping_steps, slam._need_new_keyframe, slam._lm_chunk = stepped, decided, counted_chunk
+    slam._try_close_loop = logged_close
+    system.LC.detect_orbslam2, system.LC.compute_sim3 = logged_detect, logged_sim3
     try:
         yield
     finally:
-        system.LC.detect, system.LC.compute_sim3 = detect, sim3
+        system.LC.detect_orbslam2, system.LC.compute_sim3 = detect, sim3
 
 
-def _async_circuit(card: str, sync_gba_ms: float | None, branches: dict | None = None) -> dict:
+def _slot_runs(slots) -> list:
+    """Sorted slots as [first, last] runs."""
+    runs = []
+    for s in slots:
+        if runs and s == runs[-1][1] + 1:
+            runs[-1][1] = s
+        else:
+            runs.append([s, s])
+    return runs
+
+
+def _schedule_of(run) -> dict:
+    """The schedule of a paced async run: what made it differ from a
+    synchronous run (``tests/loop_schedule.py`` replays it on the CPU).
+    ``decisions`` and ``ba_chunks`` as ``_gba_and_loop_log`` records them;
+    ``detections``: [keyframe, the newest keyframe whose mapping had ended,
+    n_kf, the KeyFrameDB's slots as [first, last] runs] per loop detection
+    past the keyframe gap."""
+    return {"decisions": run["decisions"], "ba_chunks": run["ba_chunks"],
+            "detections": [[c["kf"], c["mapped"], c["n_kf"], _slot_runs(c["valid"])]
+                           for c in run["checks"]]}
+
+
+def _trace_of(run) -> list:
+    """Each loop detection past the keyframe gap: [keyframe, minScore,
+    scored slots as runs, candidates, groups (their members as runs,
+    count), consistent candidates, Sim3 outcomes]."""
+    return [[c["kf"], round(c["min_score"], 6), _slot_runs(c["scored"]), c["candidates"],
+             [[_slot_runs(g), n] for g, n in c["groups"]], c["consistent"], c["sim3"]]
+            for c in run["checks"]]
+
+
+def _save_record(name: str, record: dict) -> str:
+    """``record`` as JSON under chiprun_out/async_circuit/ beside this
+    script (a directory git ignores); returns the path."""
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out",
+                       "async_circuit")
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, f"{name}-{time.strftime('%Y%m%d-%H%M%S')}-{os.getpid()}.json")
+    with open(path, "w") as f:
+        json.dump(record, f, separators=(",", ":"))
+    return path
+
+
+def _async_circuit(card: str, sync_gba_ms: float | None, branches: dict | None = None,
+                   held_only: bool = False) -> dict:
     """Phase 13 (b): phase 10's street circuit in async mode at the card's
     map capacity: the loop closed on the loop thread, the global BA on its
     own thread and stream while tracking and mapping go on.  First the
@@ -2276,23 +2383,28 @@ def _async_circuit(card: str, sync_gba_ms: float | None, branches: dict | None =
     ran (the merge's propagation path) and its wall time.  Returns the
     launches of the held run.  With ``branches``, phase 17 (d) and (e) run
     on the held run's system after it was measured, before its shutdown,
-    and their launches go into ``branches``."""
+    and their launches go into ``branches``.  The held run's schedule is
+    printed as one JSON line (``{"schedule": ...}``, ``_schedule_of``), and
+    with its loop trace and results written under chiprun_out/
+    (``_save_record``).  ``held_only`` (--async-circuit-only) skips the
+    camera-rate run."""
     cfg, poses = circuit_config(), circuit_poses()
     t_phase = time.perf_counter()
     frames = render_circuit(poses, "cuda")
     torch.cuda.synchronize()
 
-    fast = _paced_async_run(cfg, frames[:ASYNC_SENSOR_FRAMES], 1.0 / cfg.camera.fps)
-    if not fast["drained"]:
-        raise AssertionError("async (b): the workers did not drain in 600 s")
-    print(f"async (b), circuit at the camera's {cfg.camera.fps} fps, frames 0-"
-          f"{ASYNC_SENSOR_FRAMES - 1} (measured, not held): lost {len(fast['lost'])} (from frame "
-          f"{fast['lost'][0] if fast['lost'] else None}), n_kf {fast['slam'].n_kf}, "
-          f"mapping_backlog warnings {fast['backlog']}, frame median "
-          f"{np.median(fast['ms']):.2f} ms, mean {fast['ms'].mean():.2f} ms, mapping per "
-          f"keyframe on its thread median {np.median([t for _, t, _ in fast['mapped']]):.1f} ms "
-          f"({card})")
-    del fast
+    if not held_only:
+        fast = _paced_async_run(cfg, frames[:ASYNC_SENSOR_FRAMES], 1.0 / cfg.camera.fps)
+        if not fast["drained"]:
+            raise AssertionError("async (b): the workers did not drain in 600 s")
+        print(f"async (b), circuit at the camera's {cfg.camera.fps} fps, frames 0-"
+              f"{ASYNC_SENSOR_FRAMES - 1} (measured, not held): lost {len(fast['lost'])} (from "
+              f"frame {fast['lost'][0] if fast['lost'] else None}), n_kf {fast['slam'].n_kf}, "
+              f"mapping_backlog warnings {fast['backlog']}, frame median "
+              f"{np.median(fast['ms']):.2f} ms, mean {fast['ms'].mean():.2f} ms, mapping per "
+              f"keyframe on its thread median "
+              f"{np.median([t for _, t, _ in fast['mapped']]):.1f} ms ({card})")
+        del fast
 
     gt = world_centres(poses)
 
@@ -2305,6 +2417,7 @@ def _async_circuit(card: str, sync_gba_ms: float | None, branches: dict | None =
         run.update(ate=ate_rmse_se3(slam.camera_centers(), gt[slam.tracked_frame_ids()]),
                    pairs=pairs, pair_frames=[tuple(int(kf_frame[k]) for k in pair)
                                              for pair in pairs],
+                   kf_frames=kf_frame[:slam.n_kf].tolist(),
                    stats=dict(slam.stats), n_kf=slam.n_kf, n_pt=slam.n_pt,
                    finite=bool(np.isfinite(slam.frame_poses()).all()))
         if branches is not None:
@@ -2337,8 +2450,20 @@ def _async_circuit(card: str, sync_gba_ms: float | None, branches: dict | None =
           f"{max(map_ms):.1f} ms; launches {run['launches']}, by thread "
           f"{run['by_thread']}; phase 13 (b) took {time.perf_counter() - t_phase:.1f} s ({card})")
     print(f"async (b) per-frame ms: " + " ".join(f"{t:.0f}" for t in ms))
-    print("async (b) loop detection (keyframe: candidates and their Sim3 accepted, where "
-          "detection gave any): " + "; ".join(f"{k}: {c} {a}" for k, c, a in run["detections"]))
+    schedule, trace = _schedule_of(run), _trace_of(run)
+    path = _save_record("async_circuit", {
+        "card": card, "schedule": schedule, "trace": trace, "pairs": pairs,
+        "pair_frames": pair_frames, "ate": ate, "lost": lost, "n_kf": run["n_kf"],
+        "kf_frames": run["kf_frames"], "seconds": time.perf_counter() - t_phase})
+    print("async (b) loop detection (keyframe: consistent candidates and their Sim3 "
+          "outcomes, where detection gave any): " + "; ".join(
+              f"{c['kf']}: {c['consistent']} {c['sim3']}" for c in run["checks"]
+              if c["consistent"]))
+    print("async (b) loop trace (keyframe, minScore, scored, candidates, groups, "
+          "consistent, Sim3) from keyframe 60: " + json.dumps(
+              [t for t in trace if t[0] >= 60], separators=(",", ":")))
+    print(f"async (b) record: {os.path.relpath(path)}")
+    print(json.dumps({"schedule": schedule}, separators=(",", ":")))
     if not run["drained"]:
         raise AssertionError("async (b): the workers did not drain in 600 s")
     if len(lost) > 2:
@@ -3733,6 +3858,14 @@ def main(mode: str = "") -> None:
         print(card)
         return
 
+    if mode == "--async-circuit-only":
+        launches = _async_circuit(card, None, held_only=True)
+        for row in kernels:
+            row["launches"] = launches[row["name"]]
+        print(json.dumps({"kernels": kernels}))
+        print(card)
+        return
+
     if mode == "--datasets-only":
         _launch_rows(kernels, {"datasets": _datasets(card, full=True)}, [])
         print(json.dumps({"kernels": kernels}))
@@ -3905,11 +4038,12 @@ if __name__ == "__main__":
     # --pipelined-only phases 1-4 and 12, --async-only phases 1-4 and 13,
     # --dist-only phases 1-3 and 14, --scale-only phases 1-3 and 15,
     # --datasets-only phases 1-3 and 16 at BASELINE.md's full lengths,
-    # --branches-only phases 1-4, 6, 7, 9, 13 (b) and 17, and each
+    # --branches-only phases 1-4, 6, 7, 9, 13 (b) and 17,
+    # --async-circuit-only phases 1-3 and 13 (b)'s held run, and each
     # prints the same two lines
     modes = ("--kernels-only", "--circuit-only", "--io-only", "--pipelined-only",
              "--async-only", "--dist-only", "--scale-only", "--datasets-only",
-             "--branches-only")
+             "--branches-only", "--async-circuit-only")
     if sys.argv[1:] not in [[]] + [[m] for m in modes]:
         _fail(f"usage: python3 chip_smoke.py [{' | '.join(modes)}] (got {sys.argv[1:]})")
     main(sys.argv[1] if sys.argv[1:] else "")

@@ -6,6 +6,8 @@ thread, LoopClosing.cc).
   BoW candidates from the KeyFrameDB (``place.keyframe_db``) and the
   covisibility-consistency chaining over 3 consecutive keyframes, on the
   host over one read of the candidates and their covisibility rows;
+- ``detect_orbslam2``: the reference's DetectLoop itself, which the async
+  mode runs instead (its database, word test and consistency rule);
 - ``compute_sim3`` = ComputeSim3 (LoopClosing.cc:217-373): a mutual
   descriptor match between the current and the candidate keyframe's
   landmark features, Horn Sim3 RANSAC (scale free for monocular), the
@@ -40,6 +42,7 @@ from ..ops import matching as M
 from ..ops.descriptors import hamming
 from ..optim import pose_graph as PG
 from ..place.keyframe_db import detect_loop_candidates
+from ..place.vocab import bow_score
 from ..solvers.horn_sim3 import horn_sim3_masked, sim3_ransac
 
 
@@ -83,6 +86,103 @@ def detect(loop_state: LoopState, db, kf_slot: int, query_bow: torch.Tensor,
         if count + 1 >= consistency_th:
             enough.append(c)
     loop_state.consistent_groups = new_groups
+    return enough
+
+
+def _ordered_connected(row: np.ndarray, th: int = 15) -> list[int]:
+    """KeyFrame::GetVectorCovisibleKeyFrames from a covisibility row: the
+    keyframes sharing >= ``th`` points, heaviest first, or the heaviest
+    alone when none reaches ``th`` (KeyFrame::UpdateConnections)."""
+    idx = np.nonzero(row >= th)[0]
+    if len(idx) == 0:
+        j = int(np.argmax(row))
+        return [j] if row[j] > 0 else []
+    return idx[np.argsort(-row[idx], kind="stable")].tolist()
+
+
+def detect_orbslam2(loop_state: LoopState, db, kf_slot: int, covis: torch.Tensor,
+                    n_kf: int, *, kf_gap: int = 10, consistency_th: int = 3,
+                    record: Optional[dict] = None) -> list[int]:
+    """The reference's own DetectLoop (LoopClosing.cc:94-215) over
+    KeyFrameDatabase::DetectLoopCandidates (KeyFrameDatabase.cc:72-193),
+    which the async mode runs in place of ``detect`` (ROADMAP, faults in
+    the reference):
+
+    - the database holds the keyframes the loop closer has processed, those
+      before ``kf_slot`` (the reference adds a keyframe after its own
+      DetectLoop), less the culled ones;
+    - minScore is the lowest score against the query's ordered connected
+      keyframes (>= 15 shared points, or the heaviest), from 1;
+    - a database keyframe is scored if it shares a word with the query, is
+      not covisible with it, and shares more than 0.8 x the most shared
+      words; kept if its score >= minScore;
+    - each kept one accumulates the scores of its 10 best covisible
+      keyframes that passed the word test, and the group's best member is
+      returned when the sum is above 0.75 x the best sum (from minScore);
+    - a candidate's group is itself and every keyframe covisible with it;
+      it counts one more than a previous group it shares a keyframe with,
+      each previous group carried once, and is consistent at a count of
+      ``consistency_th`` (four detections in a row at 3).
+
+    One read of the scores, the shared word counts, the database's slots
+    and the covisibility among the first ``n_kf`` keyframes, the rest on
+    the host.  ``record``, when given, receives the step (the database's
+    slots, the connected keyframes, minScore, the scored slots, the
+    candidates, the groups, the consistent candidates)."""
+    if kf_slot < max(loop_state.last_loop_kf, 0) + kf_gap:
+        return []
+    n = max(n_kf, kf_slot + 1)
+    slots = torch.arange(n, device=covis.device)
+    q = db.bow[kf_slot]
+    bank = db.bow[:n]
+    rows = torch.cat([covis[:n, :n].to(torch.float32),
+                      torch.stack([bow_score(q, bank),
+                                   ((bank > 0) & (q > 0)).sum(dim=1).to(torch.float32),
+                                   (db.valid[:n] & (slots < kf_slot)).to(torch.float32)])])
+    host = rows.cpu().numpy()
+    cv, score, shared, in_db = host[:n], host[n], host[n + 1], host[n + 2] > 0
+
+    connected = _ordered_connected(cv[kf_slot])
+    min_score = min([1.0] + [float(score[c]) for c in connected])
+    sharing = in_db & (cv[kf_slot] <= 0) & (shared > 0)
+    passed = sharing & (shared > int(0.8 * shared[sharing].max())) if sharing.any() else sharing
+    scored = np.nonzero(passed & (score >= min_score))[0].tolist()
+    best_acc, accs = min_score, []
+    for j in scored:
+        acc, best, best_s = float(score[j]), j, float(score[j])
+        for nb in _ordered_connected(cv[j])[:10]:
+            if passed[nb]:
+                acc += float(score[nb])
+                if score[nb] > best_s:
+                    best, best_s = nb, float(score[nb])
+        accs.append((acc, best))
+        best_acc = max(best_acc, acc)
+    cands: list[int] = []
+    for acc, best in accs:
+        if acc > 0.75 * best_acc and best not in cands:
+            cands.append(best)
+
+    groups, carried, enough = [], [False] * len(loop_state.consistent_groups), []
+    for c in cands:
+        group = {c} | {int(i) for i in np.nonzero(cv[c] > 0)[0]}
+        matched = found = False
+        for i, (prev, count) in enumerate(loop_state.consistent_groups):
+            if not group & prev:
+                continue
+            matched = True
+            if not carried[i]:
+                groups.append((group, count + 1))
+                carried[i] = True
+            if count + 1 >= consistency_th and not found:
+                enough.append(c)
+                found = True
+        if not matched:
+            groups.append((group, 0))
+    loop_state.consistent_groups = groups
+    if record is not None:
+        record.update(kf=kf_slot, valid=np.nonzero(in_db)[0].tolist(), connected=connected,
+                      min_score=min_score, scored=scored, candidates=cands,
+                      groups=[[sorted(g), c] for g, c in groups], consistent=enough)
     return enough
 
 

@@ -71,7 +71,8 @@ What runs here, in the JAX package's order:
   moves the keyframes and points made while it ran along the spanning
   tree.  A local BA whose gathered window a loop correction or a GBA merge
   overtook drops its result (``map_epoch``) instead of writing
-  pre-correction poses into the corrected map;
+  pre-correction poses into the corrected map.  Loop detection there is
+  ORB-SLAM2's own DetectLoop (``LC.detect_orbslam2``);
 - the trajectory products, chained through culled keyframes.
 
 A tracked frame of the fused path reads one (6,) scalar vector and one
@@ -1223,13 +1224,15 @@ class SlamSystem:
     def _insert_keyframe_arrays(self, frame: FrameData, pose, matched_pt,
                                 parent: int) -> int:
         kf_slot = self.n_kf
+        # the KeyFrameDB's rows are written in place: before the publish,
+        # whose event orders them for the workers' streams
+        self._register_keyframe_bow(kf_slot, frame)
         self.map = map_ops.insert_keyframe(
             self.map, kf_slot, self.frame_id, pose,
             frame.xy, frame.uvr, frame.octave, frame.angle, frame.desc,
             frame.valid, matched_pt, parent,
         )
         self.n_kf += 1
-        self._register_keyframe_bow(kf_slot, frame)
         return kf_slot
 
     def _register_keyframe_bow(self, kf_slot: int, frame: FrameData):
@@ -1366,17 +1369,36 @@ class SlamSystem:
         Each candidate's RANSAC sets come from a CPU generator seeded with
         the frame id, as the JAX package seeds ``PRNGKey(frame_id)``.  An
         accepted loop stops a GBA in flight, is corrected under the writer
-        lock, and starts a new GBA."""
+        lock, and starts a new GBA.
+
+        The async mode detects with the reference's own DetectLoop
+        (``LC.detect_orbslam2``: its database of the keyframes before
+        ``kf_slot``, its word test, four consistent detections) where the
+        other modes keep the JAX package's ``detect``: there the keyframe
+        set depends on the mapping thread's timing, and the JAX rule's
+        chain of three closed the street circuit's loop late or not at all
+        under more of the recorded schedules (ROADMAP, faults in the
+        reference).  Its RANSAC is seeded with the keyframe's own frame id,
+        which a synchronous run has there, not with the tracker's frame id
+        when the loop thread gets to it."""
         if self.db is None or self.n_kf < self.cfg.loop.kf_gap + 2:
             return False
         lcfg, orb = self.cfg.loop, self.cfg.orb
         covis = covisibility_matrix(self.map)
-        cands = LC.detect(self.loop_state, self.db, kf_slot, self.db.bow[kf_slot], covis,
-                          kf_gap=lcfg.kf_gap,
-                          consistency_th=lcfg.covisibility_consistency_th)
+        seed = self.frame_id
+        if self.mapper is None:
+            cands = LC.detect(self.loop_state, self.db, kf_slot, self.db.bow[kf_slot], covis,
+                              kf_gap=lcfg.kf_gap,
+                              consistency_th=lcfg.covisibility_consistency_th)
+        else:
+            cands = LC.detect_orbslam2(self.loop_state, self.db, kf_slot, covis, self.n_kf,
+                                       kf_gap=lcfg.kf_gap,
+                                       consistency_th=lcfg.covisibility_consistency_th)
+            if cands:
+                seed = int(self.map.kf_frame_id[kf_slot])
         for cand in cands:
             gen = torch.Generator(device="cpu")
-            gen.manual_seed(self.frame_id)
+            gen.manual_seed(seed)
             ok, R_cm, t_cm, s_cm, pairs = LC.compute_sim3(
                 self.map, self.cam, kf_slot, cand, fix_scale=self.sensor != "monocular",
                 generator=gen, min_inliers=lcfg.min_bow_matches,
@@ -1948,9 +1970,9 @@ class SlamSystem:
                     self.map = self.map.replace(kf_parent=map_ops.set_rows(
                         self.map.kf_parent, idx, parent))
                     parents[children] = parent
-                self.map = LM.remove_keyframe(self.map, cand)
                 if self.db is not None:
-                    self.db.erase(cand)
+                    self.db.erase(cand)      # in place: before the publish
+                self.map = LM.remove_keyframe(self.map, cand)
             culled_this_round = True
 
     # ------------------------------------------------------- relocalization

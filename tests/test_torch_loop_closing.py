@@ -127,6 +127,44 @@ def test_detect_staged(built):
     assert n_found > 0
 
 
+def test_detect_orbslam2_staged(built):
+    """The async mode's ``detect_orbslam2`` on the JAX run's map and
+    KeyFrameDB against ORB-SLAM2's DetectLoop in numpy
+    (``loop_schedule.OrbSlam2Loop``), each keyframe queried four times in a
+    row on ``test_detect_staged``'s covisibility (the query connected to its
+    least similar keyframe alone): every step's minScore (1e-6), candidates,
+    groups and consistent candidates equal, and the fourth step accepts."""
+    from loop_schedule import OrbSlam2Loop
+
+    rec = built
+    tdb = keyframe_db_from_numpy(rec["db"])
+    covis = np.asarray(j_covis(jax.tree.map(jnp.asarray, rec["map"])))
+    valid, bow, n = rec["db"]["valid"], np.asarray(rec["db"]["bow"]), rec["n_kf"]
+    n_consistent = 0
+    for k in range(n):
+        scores = np.where(valid, tdb.scores(tdb.bow[k]).numpy(), np.inf)
+        scores[k] = np.inf
+        far = int(np.argmin(scores))
+        staged = covis.copy()
+        staged[k, :] = 0
+        staged[:, k] = 0
+        staged[k, far] = staged[far, k] = 20
+        state, model = TLC.LoopState(), OrbSlam2Loop(kf_gap=2)
+        for _ in range(4):
+            step = {}
+            got = TLC.detect_orbslam2(state, tdb, k, torch.from_numpy(staged), n, kf_gap=2,
+                                      record=step)
+            want = model.detect(k, bow[:n], np.nonzero(valid[:k])[0], staged[:n, :n])
+            if want["min_score"] is None:
+                assert got == [] and not step, k
+                continue
+            assert abs(step["min_score"] - want["min_score"]) <= 1e-6, k
+            assert got == want["consistent"], k
+            assert (step["candidates"], step["groups"]) == (want["candidates"], want["groups"])
+        n_consistent += len(got)
+    assert n_consistent > 0
+
+
 def _jax_compute(rec, j, kf_cur, kf_cand, fix_scale, key):
     """The JAX package's candidate evaluation and the sets it drew."""
     m = j.map
