@@ -1,0 +1,27 @@
+"""A cell of the benchmark cut to a size the CPU runs in seconds: half the
+camera's resolution, 500 features, a 64 x 8192 x 16 map, 16 frames a pass.
+Only for the tests: the benchmark's cells run at their files' sizes."""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+from slambench import registry
+
+CHECKS = Path(__file__).resolve().parent / "data" / "checks"
+
+
+def tiny_spec(workload: str = "tum_rgbd.desk_orbit") -> dict:
+    spec = registry.cell(registry.load_benchmark(), workload)
+    system = spec["config"]["system"]
+    cam = system["camera"]
+    for key in ("fx", "fy", "cx", "cy", "bf"):
+        cam[key] = cam[key] / 2
+    cam["width"] //= 2
+    cam["height"] //= 2
+    system["orb"]["n_features"] = 500
+    system["map"].update(max_keyframes=64, max_points=8192, max_obs_per_point=16)
+    spec["traffic"].update(first=16, warmup_frames=6, trace_frames=[8, 11],
+                           checked_frames={"count": 2, "among_first": 10},
+                           checked_eager_calls={"count": 3, "among_first": 8})
+    return spec
