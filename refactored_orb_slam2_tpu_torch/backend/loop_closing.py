@@ -44,6 +44,7 @@ from ..optim import pose_graph as PG
 from ..place.keyframe_db import detect_loop_candidates
 from ..place.vocab import bow_score
 from ..solvers.horn_sim3 import horn_sim3_masked, sim3_ransac
+from ..utils import telemetry
 
 
 @dataclasses.dataclass
@@ -68,6 +69,7 @@ def detect(loop_state: LoopState, db, kf_slot: int, query_bow: torch.Tensor,
         return []
     cands, _ = detect_loop_candidates(db, query_bow, kf_slot, covis)
     rows = covis.index_select(0, torch.clamp(cands, min=0).long())
+    telemetry.inc("host_reads")
     host = torch.cat([cands[:, None], rows], dim=1).cpu().numpy()
     row_of = {int(r[0]): r[1:] for r in host if r[0] >= 0}
     if not row_of:
@@ -139,6 +141,7 @@ def detect_orbslam2(loop_state: LoopState, db, kf_slot: int, covis: torch.Tensor
                       torch.stack([bow_score(q, bank),
                                    ((bank > 0) & (q > 0)).sum(dim=1).to(torch.float32),
                                    (db.valid[:n] & (slots < kf_slot)).to(torch.float32)])])
+    telemetry.inc("host_reads")
     host = rows.cpu().numpy()
     cv, score, shared, in_db = host[:n], host[n], host[n + 1], host[n + 2] > 0
 
@@ -203,10 +206,12 @@ def compute_sim3(state, cam, kf_cur: int, kf_cand: int, *, fix_scale: bool,
     scal, ints = compute_sim3_device(
         state, cam, kf_cur, kf_cand, fix_scale=fix_scale, generator=generator, sets=sets,
         min_inliers=min_inliers, scale_factor=scale_factor, n_levels=n_levels)
+    telemetry.inc("host_reads")
     scal = scal.cpu().numpy()
     n_matches, success, n_final = int(scal[0]), bool(scal[1] > 0), int(scal[2])
     if n_matches < min_inliers or not success or n_final < min_inliers:
         return False, None, None, 1.0, None
+    telemetry.inc("host_reads")
     ints = ints.cpu().numpy()
     idx = np.where(ints[0] > 0)[0]
     pairs = np.stack([ints[1][idx], ints[2][idx]], axis=1)
@@ -484,4 +489,5 @@ def count_loop_projection_matches(state, cam, kf_cur: int, group_kf_mask: torch.
         state.pt_desc[top_idx], state.kf_desc[kf_cur], row_valid=torch.isfinite(top_score),
         col_valid=state.kf_feat_valid[kf_cur],
         extra_mask=M.window_mask(uv_sel, state.kf_xy[kf_cur], radius_px), max_dist=max_dist)
+    telemetry.inc("host_reads")
     return int(M.resolve_duplicates(res, N).mask.sum())

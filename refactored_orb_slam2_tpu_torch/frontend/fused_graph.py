@@ -27,6 +27,15 @@ them again: the counts stay one per launch that ran, whatever other threads
 launch meanwhile.  A capture or a replay that fails raises; nothing falls
 back to the eager step.
 
+The step marks its stages with ``stage(name)``: a telemetry span, and
+inside a capture the count of kernel, memcpy and memset nodes that the
+capturing graph holds at the stage's end (``stages``, read from the CUDA
+driver).  The capture is one stream, so the graph is a chain of nodes in
+the order they were captured, which ``stages`` also checks: the k-th device
+event of a replay is then the k-th node, and the counts at the stage
+boundaries split a replay's device time by stage.  A replay runs no Python
+of the step, so the marks cost it nothing.
+
 The capture runs in ``capture_error_mode="thread_local"``: in the global
 mode a synchronizing call or a ``cudaMalloc`` that another thread makes
 during the capture (the async mode's workers) invalidates it.  The async
@@ -36,12 +45,99 @@ the capture (``AsyncMapper.stopped``).
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import dataclasses
 import gc
+import threading
 
 import torch
 
 from ..ops import cuda_hamming
+from ..utils import telemetry
+
+#: the CUDA driver's graph node types that a replay runs as device events
+#: (CU_GRAPH_NODE_TYPE_KERNEL, _MEMCPY, _MEMSET)
+_WORK_NODES = (0, 1, 2)
+_capturing = threading.local()       # .graph: the FusedGraph capturing on this thread
+_driver = None
+
+
+@contextlib.contextmanager
+def stage(name: str):
+    """A stage of the fused step: a span, and inside a capture a mark of
+    the capturing graph's work nodes so far (``FusedGraph.stages``)."""
+    with telemetry.timer(name):
+        yield
+    graph = getattr(_capturing, "graph", None)
+    if graph is not None:
+        graph._mark(name)
+
+
+def _cuda_driver():
+    """The CUDA driver's graph queries, bound at first use."""
+    global _driver
+    if _driver is None:
+        lib = ctypes.CDLL("libcuda.so.1")
+        ptr, size = ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)
+        lib.cuStreamGetCaptureInfo_v2.argtypes = [
+            ptr, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_uint64),
+            ctypes.POINTER(ptr), ctypes.POINTER(ptr), size]
+        lib.cuGraphGetNodes.argtypes = [ptr, ptr, size]
+        lib.cuGraphGetEdges.argtypes = [ptr, ptr, ptr, size]
+        lib.cuGraphNodeGetType.argtypes = [ptr, ctypes.POINTER(ctypes.c_int)]
+        for fn in (lib.cuStreamGetCaptureInfo_v2, lib.cuGraphGetNodes, lib.cuGraphGetEdges,
+                   lib.cuGraphNodeGetType):
+            fn.restype = ctypes.c_int
+        _driver = lib
+    return _driver
+
+
+def _check(rc: int, call: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{call} returned CUDA driver error {rc}")
+
+
+def _capturing_graph(stream) -> int:
+    """The graph that ``stream`` is capturing into (a CUgraph handle)."""
+    lib = _cuda_driver()
+    status, seq = ctypes.c_int(), ctypes.c_uint64()
+    graph, deps, n_deps = ctypes.c_void_p(), ctypes.c_void_p(), ctypes.c_size_t()
+    _check(lib.cuStreamGetCaptureInfo_v2(ctypes.c_void_p(stream.cuda_stream),
+                                         ctypes.byref(status), ctypes.byref(seq),
+                                         ctypes.byref(graph), ctypes.byref(deps),
+                                         ctypes.byref(n_deps)), "cuStreamGetCaptureInfo")
+    if status.value != 1 or not graph.value:        # CU_STREAM_CAPTURE_STATUS_ACTIVE
+        raise RuntimeError("the stream is not capturing")
+    return graph.value
+
+
+def _graph_nodes(graph: int) -> list:
+    lib = _cuda_driver()
+    n = ctypes.c_size_t(0)
+    _check(lib.cuGraphGetNodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    _check(lib.cuGraphGetNodes(graph, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    return list(nodes[:n.value])
+
+
+def _node_type(node: int) -> int:
+    t = ctypes.c_int()
+    _check(_cuda_driver().cuGraphNodeGetType(node, ctypes.byref(t)), "cuGraphNodeGetType")
+    return t.value
+
+
+def _is_chain(graph: int, n_nodes: int) -> bool:
+    """Every node but one has exactly one dependency and no node has two
+    dependents: the graph runs its nodes one after another."""
+    lib = _cuda_driver()
+    n = ctypes.c_size_t(0)
+    _check(lib.cuGraphGetEdges(graph, None, None, ctypes.byref(n)), "cuGraphGetEdges")
+    src, dst = (ctypes.c_void_p * n.value)(), (ctypes.c_void_p * n.value)()
+    _check(lib.cuGraphGetEdges(graph, src, dst, ctypes.byref(n)), "cuGraphGetEdges")
+    m = n.value
+    return (m == max(n_nodes - 1, 0) and len(set(src[:m])) == m
+            and len(set(dst[:m])) == m)
 
 
 def _map_tensors(fn, x):
@@ -67,7 +163,10 @@ def flat_tensors(x) -> list:
 class FusedGraph:
     """One CUDA graph of ``step(**inputs)`` (keyword tensors or None, fixed
     shapes).  ``captures`` and ``replays`` count what it did; ``launches``
-    holds the kernel launches of one replay."""
+    holds the kernel launches of one replay; ``stages``, after a capture:
+    ``marks``, each ``stage``'s (name, work nodes captured by its end) in
+    order, ``nodes``, the graph's work nodes, and ``chain``, whether the
+    graph is one chain (None where the driver could not be asked)."""
 
     def __init__(self, step):
         self.step = step
@@ -78,6 +177,9 @@ class FusedGraph:
         self.launches: dict = {}
         self.captures = 0
         self.replays = 0
+        self.stages = None
+        self._seen: set = set()
+        self._work = 0
 
     def _load(self, inputs: dict) -> None:
         for name, t in inputs.items():
@@ -115,9 +217,16 @@ class FusedGraph:
         gc.collect()
         collecting = gc.isenabled()
         gc.disable()
+        self.stages = dict(marks=[], nodes=None, chain=None)
+        self._seen, self._work = set(), 0
         try:
             with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
-                self.outputs = self.step(**self.static)
+                _capturing.graph = self
+                try:
+                    self.outputs = self.step(**self.static)
+                finally:
+                    _capturing.graph = None
+                self._mark(None)
         finally:
             if collecting:
                 gc.enable()
@@ -130,6 +239,27 @@ class FusedGraph:
         self.graph = graph
         self.captures += 1
         return result
+
+    def _mark(self, name) -> None:
+        """The capturing graph's work nodes so far: at the end of stage
+        ``name``, or with None at the capture's end, the total and the chain
+        check.  A driver call that fails warns and ends the counting for
+        this capture (``chain`` stays None)."""
+        if self._seen is None:
+            return
+        try:
+            graph = _capturing_graph(torch.cuda.current_stream())
+            nodes = _graph_nodes(graph)
+            new = [n for n in nodes if n not in self._seen]
+            self._seen.update(new)
+            self._work += sum(_node_type(n) in _WORK_NODES for n in new)
+            if name is None:
+                self.stages.update(nodes=self._work, chain=_is_chain(graph, len(nodes)))
+            else:
+                self.stages["marks"].append((name, self._work))
+        except (OSError, AttributeError, RuntimeError) as e:
+            telemetry.warn("graph_stages", f"fused graph stages not counted: {e}")
+            self._seen = None
 
     def run(self, inputs: dict):
         """The step's outputs for ``inputs``: captured at the first call,

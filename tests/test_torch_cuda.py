@@ -618,3 +618,57 @@ def test_multihost_one_rank_under_nccl(cuda, tmp_path):
     W.launch(1, f"file://{tmp_path / 'rendezvous'}", ["cuda:0"], str(out), timeout=180.0)
     assert np.load(f"{out}.points.0.npy").shape == (64, 3)
     assert np.isfinite(np.load(f"{out}.poses.0.npy")).all()
+
+
+def _graph_launch_events(prof) -> list:
+    """Per ``cudaGraphLaunch`` of a profile, in launch order: the device
+    events that carry its correlation id (every node the replay ran), in
+    start order."""
+    from torch.autograd import DeviceType
+
+    events = prof.profiler.kineto_results.events()
+    launches = sorted((e for e in events if e.device_type() != DeviceType.CUDA
+                       and e.name() == "cudaGraphLaunch"), key=lambda e: e.start_ns())
+    linked = {e.correlation_id(): [] for e in launches}
+    for e in events:
+        if e.device_type() == DeviceType.CUDA and e.correlation_id() in linked:
+            linked[e.correlation_id()].append(e)
+    return [sorted(linked[e.correlation_id()], key=lambda d: d.start_ns()) for e in launches]
+
+
+def test_fused_graph_stages_split_every_replay(cuda):
+    """The fused step's seven stage marks at the capture, in order, over a
+    graph that is one chain, and their node total equal to the device
+    events that carry each replay's ``cudaGraphLaunch`` correlation id in
+    the profiler: so the marks split a replay's device events by stage."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = SystemConfig(
+        sensor="rgbd",
+        camera=CameraConfig(fx=258.65, fy=258.25, cx=159.3, cy=127.65, bf=20.0,
+                            width=320, height=240),
+        orb=ORBConfig(n_features=500, n_levels=4),
+        map=MapConfig(max_keyframes=24, max_points=4096, max_obs_per_point=8),
+    )
+    world = W.scene_room(seed=11)
+    poses = W.traj_room_orbit(160, seed=5, span=0.45 * np.pi)[:9]
+    slam = SlamSystem(cfg, device=cuda)
+    rng = np.random.default_rng(0)
+    frames = [world.render_device(T, slam.cam, want_depth=True, noise=2.0, rng=rng,
+                                  device=cuda) for T in poses]
+    for i, f in enumerate(frames[:6]):
+        assert slam.track_rgbd_device(*f, i / 30.0) is not None
+    stages = slam._graph.stages
+    names = [name for name, _ in stages["marks"]]
+    assert names == ["track.build", "track.motion", "track.pose1", "track.local_select",
+                     "track.local_match", "track.pose2", "track.counts"]
+    counts = [n for _, n in stages["marks"]]
+    assert 0 < counts[0] and counts == sorted(counts) and counts[-1] == stages["nodes"]
+    assert stages["chain"] is True
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i, f in enumerate(frames[6:], start=6):
+            assert slam.track_rgbd_device(*f, i / 30.0) is not None
+        torch.cuda.synchronize()
+    replays = _graph_launch_events(prof)
+    assert len(replays) == 3
+    assert [len(r) for r in replays] == [stages["nodes"]] * 3
