@@ -8,10 +8,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 
 1. device — requires CUDA (there is no CPU path) and prints the card's name
    and power limit from nvidia-smi;
-2. build — compiles both Hamming kernels from
-   refactored_orb_slam2_tpu_torch/csrc/ (window_match.cu, masked_best2.cu;
-   sm_90a, one nvcc per source, started together) into the ignored build
-   directory, timed as set-up;
+2. build — compiles the kernels from refactored_orb_slam2_tpu_torch/csrc/
+   (the Hamming matchers window_match.cu and masked_best2.cu, the pose-only
+   LM pose_lm.cu; sm_90a, one nvcc per source, started together) into the
+   ignored build directory, timed as set-up;
 3. kernels — each kernel against its plain PyTorch version on the card,
    d1, i1 and d2 equal.  The window matcher at the JAX self-check shape
    (512 x 1024), the golden shape (256 x 384) and the tracking shape (4096
@@ -44,7 +44,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    (what any launch costs), the bound computed from the inputs (bytes over
    the memory rate or operations over the non-tensor rate, whichever is
    larger) with the kernel's share of it, and CUDA-event medians around the
-   wrapper and the plain version, interleaved (what a caller waits);
+   wrapper and the plain version, interleaved (what a caller waits).  The
+   pose kernel against optimize_pose_reference on tests/pose_cases.py's
+   problems (mono, stereo mix, 20% outliers, invalid edges, points behind
+   the camera, no valid edge; 300 to 3000 edges: pose within 1e-4, inliers
+   equal, chi2 within 1e-3), then timed at 1000 and 1200 edges beside the
+   plain version eager and as a CUDA graph;
 4. RGB-D sequence — SlamSystem(device="cuda") at the bench configuration (640x480
    RGB-D, TUM fr1 intrinsics, 1000 ORB features, 8 levels, map 512
    keyframes x 65536 points x 32 observations), synchronous mapping, loop
@@ -3662,7 +3667,7 @@ def _side_stream_check(wargs, band, margs) -> int:
 
 
 def _kernels(card: str) -> list:
-    """Phases 2 and 3: build both kernels, hold each against its plain
+    """Phases 2 and 3: build the kernels, hold each against its plain
     version, time it; returns the rows of the kernel JSON line (without
     the launch counts of the sequence)."""
     from refactored_orb_slam2_tpu_torch.ops import cuda_hamming
@@ -3801,7 +3806,86 @@ def _kernels(card: str) -> list:
         "replaces": "refactored_orb_slam2_tpu/ops/pallas_hamming.py:80",
         "launches": None,
         "max_abs_err": m_err,
-    }, **m["fuse"], other_shapes=[m[k] for k in m if k != "fuse"])]
+    }, **m["fuse"], other_shapes=[m[k] for k in m if k != "fuse"]), _pose_lm(card)]
+
+
+# one pose-only LM edge in one normal-equation build of csrc/pose_lm.cu:
+# the transform 18, projection and residual 14, chi2, Huber and weights 10,
+# the Jacobian's three rows 25, J^T w J and J^T w r over three rows 3 x 60
+POSE_LM_FLOPS_PER_EDGE = 247
+POSE_LM_BUILDS = 49              # 4 rounds x (1 + 10 builds) + 4 reclassifications + 1
+
+
+def _pose_lm(card: str) -> dict:
+    """Phase 3 for the pose kernel: ``optimize_pose`` on the card against
+    ``optimize_pose_reference`` on tests/pose_cases.py's problems (every
+    kind, at 300, 1000, 1200, 2000 and 3000 edges), then, at 1000 and 1200
+    edges, its device-side time, the same at one edge (the solver's chain
+    alone), its bound, what a caller waits, and the plain version's time
+    eager and replayed as a CUDA graph.  Returns the kernel JSON row."""
+    from refactored_orb_slam2_tpu_torch.optim import pose_opt
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from pose_cases import KINDS, camera, pose_case
+
+    names = ("Tcw0", "points_w", "obs", "inv_sigma2", "valid", "is_stereo")
+    cam, err = camera(), 0.0
+    for n in (300, 1000, 1200, 2000, 3000):
+        for kind in KINDS:
+            case = pose_case(kind, n, seed=n + len(kind), device="cuda")
+            args = {k: case[k] for k in names}
+            got = pose_opt.optimize_pose(cam, **args)
+            ref = pose_opt.optimize_pose_reference(cam, **args)
+            torch.cuda.synchronize()
+            pose_err = float((got.Tcw - ref.Tcw).abs().max())
+            if (pose_err > 1e-4 or not torch.equal(got.inlier, ref.inlier)
+                    or int(got.n_inliers) != int(ref.n_inliers)
+                    or not torch.allclose(got.chi2, ref.chi2, rtol=1e-3, atol=1e-3)):
+                raise AssertionError(f"pose_lm {kind} at {n}: pose off by {pose_err}, inliers "
+                                     f"{int(got.n_inliers)} / {int(ref.n_inliers)}")
+            err = max(err, pose_err)
+    print(f"pose kernel: every kind {sorted(KINDS)} at 300-3000 edges within 1e-4 of the plain "
+          f"version (largest pose difference {err:.3g}), inliers equal, chi2 within 1e-3")
+
+    def graphed(fn):
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        return graph.replay
+
+    rows = []
+    one = {k: v for k, v in pose_case("stereo_mix", 1, seed=1, device="cuda").items()
+           if k in names}
+    floor_ms = _device_ms(lambda: pose_opt.optimize_pose(cam, **one), "pose_lm_kernel")
+    for n in (1000, 1200):
+        case = pose_case("outliers", n, seed=n, device="cuda")
+        args = {k: case[k] for k in names}
+        kern = lambda: pose_opt.optimize_pose(cam, **args)
+        plain = lambda: pose_opt.optimize_pose_reference(cam, **args)
+        device_ms = _device_ms(kern, "pose_lm_kernel")
+        ms, plain_ms = _interleaved_ms(kern, plain)
+        _, plain_graph_ms = _interleaved_ms(kern, graphed(plain))
+        n_bytes = sum(t.numel() * t.element_size() for t in args.values()) + 16 * 4 + n * 5 + 4
+        ops = POSE_LM_BUILDS * n * POSE_LM_FLOPS_PER_EDGE
+        t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        print(f"kernel time, pose_lm at {n} edges: device-side {device_ms:.5f} ms (median of 20 "
+              f"launches in a torch.profiler trace), at 1 edge {floor_ms:.5f} ms, bound "
+              f"{bound_ms:.6f} ms by {'bytes' if t_bytes >= t_ops else 'operations'} "
+              f"({n_bytes} B, {ops} FLOP), share of bound {bound_ms / device_ms:.4f}; a caller "
+              f"waits {ms:.4f} ms, plain version {plain_ms:.4f} ms eager, {plain_graph_ms:.4f} ms "
+              f"as a CUDA graph (medians of 20, CUDA events around the call; {card})")
+        rows.append({"shape": f"{n} edges", "ms": ms, "plain_ms": plain_ms,
+                     "plain_graph_ms": plain_graph_ms, "device_ms": device_ms,
+                     "floor_ms": floor_ms, "bound_ms": bound_ms,
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "library_ms": None})
+    return dict({"name": "pose_lm", "route": "cuda",
+                 "source": "refactored_orb_slam2_tpu_torch/csrc/pose_lm.cu",
+                 "replaces": None, "launches": None, "max_abs_err": err},
+                **rows[0], other_shapes=rows[1:])
 
 
 def _launch_rows(kernels: list, by_path: dict, reloc: list, rescue: dict | None = None) -> None:
@@ -3814,7 +3898,7 @@ def _launch_rows(kernels: list, by_path: dict, reloc: list, rescue: dict | None 
     # relocalization needs one only for a rescue round or a new keyframe; the
     # sharded BA (phase 14) has no Hamming kernel, as in the JAX package
     exempt = {("localization", "hamming_best2"), ("relocalization", "hamming_best2"),
-              ("dist", "hamming_best2"), ("dist", "window_match")}
+              ("dist", "hamming_best2"), ("dist", "window_match"), ("dist", "pose_lm")}
     for row in kernels:
         row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())
@@ -3843,6 +3927,7 @@ def main(mode: str = "") -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from refactored_orb_slam2_tpu_torch.ops import cuda_hamming
     from refactored_orb_slam2_tpu_torch.system import SlamSystem
 
     kernels = _kernels(card)
@@ -3923,7 +4008,7 @@ def main(mode: str = "") -> None:
     # --branches-only: phase 17 and the phases whose systems it reuses (4, 6,
     # 9 and 7 for (b), 13 (b) for (d) and (e))
     only = mode == "--branches-only"
-    branches = dict.fromkeys(("window_match", "hamming_best2"), 0)
+    branches = dict.fromkeys(cuda_hamming.SOURCES, 0)
     rescue = {}
 
     def add(launches):

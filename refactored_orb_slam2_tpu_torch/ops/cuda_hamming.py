@@ -1,5 +1,6 @@
-"""Hamming best-2 matchers: the hand-written CUDA kernels and their plain
-versions.
+"""The port's hand-written CUDA kernels, their loader and their plain
+versions: the Hamming best-2 matchers, and the pose-only LM that the
+tracked frame runs twice.
 
 - ``window_match`` replaces ``refactored_orb_slam2_tpu/ops/pallas_hamming.py::
   window_match_pallas`` (kernel body ``_match_kernel``): per query row, the
@@ -13,8 +14,15 @@ versions.
   (kernel body ``_kernel``): the same best-2, under a precomputed (N1, N2)
   bool mask.  The kernel (``csrc/masked_best2.cu``) is bound by the bytes
   of the mask, which it reads 16 at a time.
+- ``pose_lm`` replaces no Pallas kernel: it runs the whole of
+  ``optim/pose_opt.py::optimize_pose_reference`` (4 rounds of 10 LM
+  iterations over one camera's edges) in one thread block
+  (``csrc/pose_lm.cu``), where the plain version is some 8,200 small
+  PyTorch kernels.  It is bound by latency: 49 normal-equation builds and
+  40 damped 6x6 solves in one chain.  ``optimize_pose`` launches it on
+  CUDA tensors.
 
-Both kernels give each query row one warp with the lanes across columns,
+Both matchers give each query row one warp with the lanes across columns,
 gather the row's candidates into a queue so that all 32 lanes run their
 popcounts together, read only the candidates' descriptors (from device
 memory; the window matcher keeps the targets' uv and octave, 12 B a column,
@@ -24,10 +32,10 @@ in shared memory), and merge the lanes' best-2 with the tie rule of
 See each source for its contract.  On a CUDA tensor a wrapper launches its
 kernel or raises.  On a CPU tensor it runs its plain version
 (``window_match_reference``, ``hamming_best2_reference``: dense Hamming,
-then the masks, then ``masked_best2``), which is also what the kernel is
-checked against.  The kernels build at first use with ``nvcc`` for
-``sm_90a`` into ``build/`` next to this package, keyed by a hash of the
-source and of the header both include.
+then the masks, then ``masked_best2``; ``optimize_pose_reference``), which
+is also what the kernel is checked against.  The kernels build at first use
+with ``nvcc`` for ``sm_90a`` into ``build/`` next to this package, one
+library a source, keyed by a hash of the source and of the shared header.
 """
 
 from __future__ import annotations
@@ -49,8 +57,9 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {
     "window_match": _PKG / "csrc" / "window_match.cu",
     "hamming_best2": _PKG / "csrc" / "masked_best2.cu",
+    "pose_lm": _PKG / "csrc" / "pose_lm.cu",
 }
-HEADERS = (_PKG / "csrc" / "best2_merge.cuh",)     # included by every source
+HEADERS = (_PKG / "csrc" / "best2_merge.cuh",)     # the matchers' shared header
 BUILD_DIR = _PKG / "build"
 
 #: kernel launches per wrapper since the last reset (CPU calls are not counted)
@@ -101,7 +110,7 @@ def _nvcc() -> str:
     if default.exists():
         return str(default)
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
-                       "to build the Hamming kernels")
+                       "to build the CUDA kernels")
 
 
 def _lib_path(name: str) -> Path:
@@ -137,6 +146,9 @@ _ARGTYPES = {
                      [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2),
     "hamming_best2": ("masked_best2_launch",
                       [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2),
+    "pose_lm": ("pose_lm_launch",
+                [ctypes.c_void_p] * 10 + [ctypes.c_int] + [ctypes.c_float] * 5
+                + [ctypes.c_void_p]),
 }
 
 
@@ -163,8 +175,23 @@ def _check(spec, args, sizes):
         if tuple(t.shape) != tuple(sizes[s] for s in side) + tail:
             raise ValueError(f"{name} has shape {tuple(t.shape)}")
     if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"the Hamming kernels run on cuda or cpu tensors, not {device}")
+        raise ValueError(f"the CUDA kernels run on cuda or cpu tensors, not {device}")
     return device
+
+
+def _call(name, device, *args) -> None:
+    """One launch of ``name`` with ``args`` on the current stream of
+    ``device``, counted; raises if the launch was refused."""
+    fn = _launcher(name)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if torch.cuda.current_device() == device.index:
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    count(name)
 
 
 def _launch(name, args, n1, *ints):
@@ -176,18 +203,8 @@ def _launch(name, args, n1, *ints):
     ptrs = [t.data_ptr() for t in args]
     if ptrs[0] % 16 or ptrs[1] % 16:
         raise ValueError(f"{name}: descriptor banks must be 16-byte aligned")
-    device = args[0].device
-    out = torch.empty((3, n1), dtype=torch.int32, device=device)
-    fn = _launcher(name)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    if torch.cuda.current_device() == device.index:
-        err = fn(*ptrs, *ints, out.data_ptr(), stream)
-    else:
-        with torch.cuda.device(device):
-            err = fn(*ptrs, *ints, out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    count(name)
+    out = torch.empty((3, n1), dtype=torch.int32, device=args[0].device)
+    _call(name, args[0].device, *ptrs, *ints, out.data_ptr())
     return out[0], out[1], out[2]
 
 
@@ -250,3 +267,35 @@ def hamming_best2(desc_a, desc_b, mask):
     if device.type == "cpu":
         return hamming_best2_reference(desc_a, desc_b, mask)
     return _launch("hamming_best2", (desc_a, desc_b, mask), n1, n1, n2)
+
+
+_POSE_SPEC = (
+    ("Tcw0", torch.float32, (4, 4), ""), ("points_w", torch.float32, (3,), "n"),
+    ("obs", torch.float32, (3,), "n"), ("inv_sigma2", torch.float32, (), "n"),
+    ("valid", torch.bool, (), "n"), ("is_stereo", torch.bool, (), "n"),
+)
+
+
+def check_pose_lm(Tcw0, points_w, obs, inv_sigma2, valid, is_stereo) -> torch.device:
+    """The device of ``pose_lm``'s tensors; raises on a mixed device, a
+    dtype or a shape the kernel does not take."""
+    n = points_w.shape[0] if points_w.dim() else -1
+    return _check(_POSE_SPEC, (Tcw0, points_w, obs, inv_sigma2, valid, is_stereo), {"n": n})
+
+
+def pose_lm(cam, Tcw0, points_w, obs, inv_sigma2, valid, is_stereo):
+    """The pose-only LM as one launch of ``csrc/pose_lm.cu``, on CUDA
+    tensors that ``check_pose_lm`` passed: Tcw0 (4, 4), points_w and obs
+    (N, 3), inv_sigma2 (N,) float32, valid and is_stereo (N,) bool; the
+    intrinsics ``cam.fx``, ``fy``, ``cx``, ``cy``, ``bf`` go in as float32.
+    Returns (Tcw (4, 4), inlier (N,) bool, n_inliers () int32, chi2 (N,)),
+    as ``optim/pose_opt.py::optimize_pose_reference``."""
+    args = tuple(t.contiguous() for t in (Tcw0, points_w, obs, inv_sigma2, valid, is_stereo))
+    device, n = Tcw0.device, points_w.shape[0]
+    out = (torch.empty((4, 4), dtype=torch.float32, device=device),
+           torch.empty(n, dtype=torch.bool, device=device),
+           torch.empty((), dtype=torch.int32, device=device),
+           torch.empty(n, dtype=torch.float32, device=device))
+    _call("pose_lm", device, *(t.data_ptr() for t in args + out), n,
+          cam.fx, cam.fy, cam.cx, cam.cy, cam.bf)
+    return out

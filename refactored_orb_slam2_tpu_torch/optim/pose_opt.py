@@ -8,8 +8,11 @@
 - per-edge information = invSigma2 of the keypoint's octave;
 - edges behind the camera are dropped for the round.
 
-The LM accept/reject is ``torch.where`` on the device: the loop has a fixed
-trip count and reads nothing back to the host.
+``optimize_pose`` runs the plain version, ``optimize_pose_reference``, on
+CPU tensors; on CUDA tensors it launches the hand-written kernel
+``csrc/pose_lm.cu`` (one thread block runs the whole solve) or raises.  In
+the plain version the LM accept/reject is ``torch.where`` on the device:
+the loop has a fixed trip count and reads nothing back to the host.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import NamedTuple
 import torch
 
 from ..geometry import se3
+from ..ops import cuda_hamming
 from . import residuals as res
 
 N_ROUNDS = 4
@@ -72,9 +76,23 @@ def optimize_pose(cam, Tcw0: torch.Tensor, points_w: torch.Tensor,
                   valid: torch.Tensor, is_stereo: torch.Tensor) -> PoseOptResult:
     """Optimize one camera pose against fixed map points.
 
-    points_w: (N, 3); obs: (N, 3) as (u, v, uR), uR ignored for mono edges;
-    inv_sigma2: (N,); valid: (N,) edge mask; is_stereo: (N,) bool.
+    Tcw0: (4, 4) float32; points_w: (N, 3) float32; obs: (N, 3) float32 as
+    (u, v, uR), uR ignored for mono edges; inv_sigma2: (N,) float32;
+    valid: (N,) bool edge mask; is_stereo: (N,) bool.  All on one device:
+    the CPU runs ``optimize_pose_reference``, a GPU one launch of
+    ``csrc/pose_lm.cu`` (``cuda_hamming.pose_lm``).  Raises on another
+    dtype or shape, or on mixed devices.
     """
+    args = (Tcw0, points_w, obs, inv_sigma2, valid, is_stereo)
+    if cuda_hamming.check_pose_lm(*args).type == "cpu":
+        return optimize_pose_reference(cam, *args)
+    return PoseOptResult(*cuda_hamming.pose_lm(cam, *args))
+
+
+def optimize_pose_reference(cam, Tcw0: torch.Tensor, points_w: torch.Tensor,
+                            obs: torch.Tensor, inv_sigma2: torch.Tensor,
+                            valid: torch.Tensor, is_stereo: torch.Tensor) -> PoseOptResult:
+    """Plain PyTorch version of ``optimize_pose``, on any device."""
     eye6 = torch.eye(6, dtype=points_w.dtype, device=points_w.device)
     th = torch.where(is_stereo, res.CHI2_STEREO, res.CHI2_MONO)
 

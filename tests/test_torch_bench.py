@@ -71,7 +71,7 @@ def test_kernel_selfcheck_runs_and_leaves_the_counts():
     cuda_hamming.launches.update(window_match=3, hamming_best2=5)
     try:
         bench.kernel_selfcheck(bench.bench_config(), device="cpu")
-        assert cuda_hamming.launches == {"window_match": 3, "hamming_best2": 5}
+        assert cuda_hamming.launches == {"window_match": 3, "hamming_best2": 5, "pose_lm": 0}
     finally:
         cuda_hamming.reset_launches()
 

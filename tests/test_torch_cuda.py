@@ -323,9 +323,9 @@ def test_fused_graph_captured_once_per_system_and_sensor(cuda):
 
 
 def test_pose_lm_captures_in_a_cuda_graph(cuda):
-    """The pose-only LM, ``torch.linalg.solve_ex`` of its 6x6 systems
-    included, captured in a CUDA graph: its replay equals the eager run,
-    also after the inputs change."""
+    """The pose-only LM, one launch of ``csrc/pose_lm.cu`` on the card,
+    captured in a CUDA graph: its replay equals the eager run, also after
+    the inputs change."""
     from refactored_orb_slam2_tpu_torch.geometry import camera as cam_mod, se3
     from refactored_orb_slam2_tpu_torch.optim.pose_opt import optimize_pose
 
@@ -357,6 +357,86 @@ def test_pose_lm_captures_in_a_cuda_graph(cuda):
         assert all(torch.equal(a, b) for a, b in zip(out, eager))
 
 
+# ------------------------------------------------------ the pose-only LM
+POSE_ARGS = ("Tcw0", "points_w", "obs", "inv_sigma2", "valid", "is_stereo")
+
+
+@pytest.mark.parametrize("n", [300, 1000, 1200, 2000, 3000])
+@pytest.mark.parametrize("kind", ["mono", "stereo_mix", "outliers", "invalid", "behind",
+                                  "none_valid"])
+def test_pose_lm_kernel_equals_plain(cuda, kind, n):
+    """``csrc/pose_lm.cu`` against ``optimize_pose_reference`` on the card,
+    at the presets' slot counts and past the 2048 edges the kernel holds in
+    registers.  Both sum in float32, in other orders, so the pose is held
+    to 1e-4 (the JAX parity tolerance of test_torch_tracking.py) and chi2
+    to 1e-3; the inlier classification must be equal."""
+    from pose_cases import camera, pose_case
+    from refactored_orb_slam2_tpu_torch.optim import pose_opt
+
+    case = pose_case(kind, n, seed=n + len(kind), device=cuda)
+    args = {k: case[k] for k in POSE_ARGS}
+    before = cuda_hamming.launches["pose_lm"]
+    got = pose_opt.optimize_pose(camera(), **args)
+    assert cuda_hamming.launches["pose_lm"] == before + 1
+    ref = pose_opt.optimize_pose_reference(camera(), **args)
+    torch.cuda.synchronize()
+    assert got.Tcw.shape == (4, 4) and got.inlier.dtype == torch.bool
+    assert got.n_inliers.shape == () and got.n_inliers.dtype == torch.int32
+    torch.testing.assert_close(got.Tcw, ref.Tcw, rtol=0, atol=1e-4)
+    assert torch.equal(got.inlier, ref.inlier)
+    assert int(got.n_inliers) == int(ref.n_inliers) == int(got.inlier.sum())
+    torch.testing.assert_close(got.chi2, ref.chi2, rtol=1e-3, atol=1e-3)
+    if kind == "none_valid":
+        assert torch.equal(got.Tcw, args["Tcw0"]) and int(got.n_inliers) == 0
+    else:
+        assert int(got.n_inliers) > 0
+
+
+def test_pose_lm_kernel_is_deterministic(cuda):
+    """Two launches on the same inputs agree bit for bit (a fixed reduction
+    order, no atomics), and each is one counted launch."""
+    from pose_cases import camera, pose_case
+    from refactored_orb_slam2_tpu_torch.optim import pose_opt
+
+    case = pose_case("outliers", 1200, seed=5, device=cuda)
+    args = {k: case[k] for k in POSE_ARGS}
+    before = cuda_hamming.launches["pose_lm"]
+    first = pose_opt.optimize_pose(camera(), **args)
+    second = pose_opt.optimize_pose(camera(), **args)
+    torch.cuda.synchronize()
+    assert cuda_hamming.launches["pose_lm"] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_every_card_pose_lm_goes_through_the_kernel(cuda):
+    """Over a tracked run on the card, the kernel's launches are two a
+    graph replay plus one an eager call (the warm-up before the capture,
+    and any decomposed frame)."""
+    from refactored_orb_slam2_tpu_torch.optim import pose_opt
+
+    calls = {"eager": 0, "plain": 0}
+    launch, plain = cuda_hamming.pose_lm, pose_opt.optimize_pose_reference
+
+    def counted(*a, **k):
+        calls["eager"] += not torch.cuda.is_current_stream_capturing()
+        return launch(*a, **k)
+
+    def plain_counted(*a, **k):
+        calls["plain"] += 1
+        return plain(*a, **k)
+
+    cuda_hamming.pose_lm, pose_opt.optimize_pose_reference = counted, plain_counted
+    try:
+        before = cuda_hamming.launches["pose_lm"]
+        slam, _, _ = _graph_run(n_frames=8, compare=False)
+        launched = cuda_hamming.launches["pose_lm"] - before
+    finally:
+        cuda_hamming.pose_lm, pose_opt.optimize_pose_reference = launch, plain
+    assert slam._graph.launches["pose_lm"] == 2
+    assert calls["plain"] == 0 and calls["eager"] >= 2
+    assert launched == 2 * slam._graph.replays + calls["eager"]
+
+
 def test_fused_graph_capture_outlives_a_dead_graph(cuda):
     """A dropped system whose graph sits in a reference cycle (the graph
     holds the system's bound step) is collected before the next system's
@@ -378,10 +458,11 @@ def test_fused_graph_capture_outlives_a_dead_graph(cuda):
 def test_fused_graph_replay_adds_its_launches(cuda):
     slam, _, _ = _graph_run(n_frames=4, compare=False)
     graph = slam._graph
-    assert graph.launches == {"window_match": 1}
+    assert graph.launches == {"window_match": 1, "pose_lm": 2}
     before = dict(cuda_hamming.launches)
     out = graph.run({name: t for name, (t, _) in graph.copied.items()})
-    assert cuda_hamming.launches == dict(before, window_match=before["window_match"] + 1)
+    assert cuda_hamming.launches == dict(before, window_match=before["window_match"] + 1,
+                                         pose_lm=before["pose_lm"] + 2)
     assert out[-1].shape == (6,)
 
 
