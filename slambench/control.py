@@ -13,7 +13,10 @@ and computed in TF32, then in bfloat16.  The control's pass is the
 rendered ground truth, every frame's pose (each frame also a keyframe) and
 points drawn from the seed on the scene's surfaces, rounded to that
 precision; its matcher answers are the plain best-2 of each checked call's
-own inputs with the window test in that precision.  A fault
+own inputs with the window test in that precision.  For a monocular
+configuration the pass is first put in a map unit drawn from the seed, a
+power of two, so that it goes through the similarity alignment and rounds
+as it would at unit scale.  A fault
 (``faults.py``) is planted under runs of its own.  One JSON line per
 reading: its seed, what was judged, ``correct``, the readings and the
 checks.  The benchmark's own runs never run this.
@@ -51,17 +54,28 @@ class Patches:
             setattr(owner, name, value)
 
 
-def control_pass(inputs: dict, bits: int, seed: int) -> dict:
-    """The reference's pass in the program's place, rounded to ``bits``."""
+def map_unit(seed: int) -> float:
+    """A monocular control's map unit in metres: 2**k, k in -3..3 but 0,
+    drawn from the seed.  A power of two scales every float exactly, so the
+    control rounds as at unit scale."""
+    k = int(np.random.default_rng([seed, 1]).choice([-3, -2, -1, 1, 2, 3]))
+    return 2.0 ** k
+
+
+def control_pass(inputs: dict, bits: int, seed: int, unit: float = 1.0) -> dict:
+    """The reference's pass in the program's place, in a map whose unit is
+    ``unit`` metres, rounded to ``bits``."""
     rng = np.random.default_rng(seed)
     points = np.concatenate([s.p0 + np.outer(rng.random(POINTS_PER_SURFACE), s.eu)
                              + np.outer(rng.random(POINTS_PER_SURFACE), s.ev)
                              for s in inputs["surfaces"]])
-    Tcw = reference.round_mantissa(inputs["Tcw"], bits)
+    Tcw = np.array(inputs["Tcw"], np.float32)
+    Tcw[:, :3, 3] /= unit
+    Tcw = reference.round_mantissa(Tcw, bits)
     n = len(Tcw)
     return dict(ts=inputs["stamps"], Tcw=Tcw, kf_frame=np.arange(n), kf_Tcw=Tcw,
-                points=reference.round_mantissa(points, bits), fed=n, logged=n, lost=0,
-                complete=True)
+                points=reference.round_mantissa(points / unit, bits), fed=n, init=0,
+                logged=n, lost=0, complete=True)
 
 
 def control_calls(calls: list, bits: int) -> list:
@@ -95,14 +109,15 @@ def readings(spec, seed: int, seconds: float, fault: str | None = None) -> list:
     finally:
         patches.undo()
     passes, inputs, calls = run["passes"], run["inputs"], run["calls"]
-    failed = int(sum(p["lost"] + max(0, p["fed"] - p["logged"]) for p in passes))
-    lines = [_line(seed, fault or "sound", harness.judge(passes, inputs, calls, name),
-                   attempted=len(run["times"]), failed=failed,
+    sensor = spec["config"]["system"]["sensor"]
+    unit = map_unit(seed) if sensor == "monocular" else 1.0
+    lines = [_line(seed, fault or "sound", harness.judge(passes, inputs, calls, name, sensor),
+                   attempted=len(run["times"]), failed=harness.failed_frames(passes, sensor),
                    metrics=harness.window_metrics(run["times"]))]
     if not fault:
         for kind, bits in PRECISIONS.items():
-            verdict = harness.judge([control_pass(inputs, bits, seed)], inputs,
-                                    control_calls(calls, bits), name)
+            verdict = harness.judge([control_pass(inputs, bits, seed, unit)], inputs,
+                                    control_calls(calls, bits), name, sensor)
             lines.append(_line(seed, kind, verdict))
     return lines
 

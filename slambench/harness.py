@@ -19,7 +19,11 @@ summed time; the harness's own bookkeeping between calls is outside it.
 After the window the system is freed and ``reference.py`` judges what each
 pass left: its frames lost or never logged, its trajectory, its keyframes
 and map points, and the matchers' answers on calls sampled from the seed
-(every call in a traced slice).
+(every call in a traced slice).  A monocular pass returns no pose until its
+initializer accepts a frame pair: the frames fed before its first tracked
+frame are its ``init_frames``, and only the frames from that one on count
+as lost; its map has the initializer's unit, so it is aligned to the ground
+truth by a similarity.
 """
 
 from __future__ import annotations
@@ -197,10 +201,12 @@ class Recorder:
 
 
 # ------------------------------------------------------------------- a run
-def _snapshot(slam, fps: float) -> dict:
+def _snapshot(slam, fps: float, fed: int, init: int | None, complete: bool) -> dict:
     """What a pass left, on the host: its tracked frames' timestamps and
     poses, its lost frames, its valid keyframes (the frame each was made
-    from, its pose) and its valid map points."""
+    from, its pose) and its valid map points; the frames fed, and ``init``,
+    the frames fed before the first call that returned a pose (all of them
+    when none did)."""
     logs = slam.tracked_logs()
     Tcw = slam.frame_poses()
     m = slam.map
@@ -217,7 +223,8 @@ def _snapshot(slam, fps: float) -> dict:
                 logged=len(slam.trajectory), n_kf=n_kf,
                 kf_frame=np.asarray([first[k] for k in kfs], int),
                 kf_Tcw=kf_pose[kfs].reshape(-1, 4, 4),
-                points=m.pt_pos[m.pt_valid].cpu().numpy())
+                points=m.pt_pos[m.pt_valid].cpu().numpy(),
+                fed=fed, init=fed if init is None else init, complete=complete)
 
 
 def _card() -> str:
@@ -257,6 +264,7 @@ def drive(spec: dict, seed: int, seconds: float, trace: bool, *, device="cuda",
 
     rec = Recorder(device)
     rec.install()
+    probes = None
     try:
         slam = SlamSystem(cfg, device=device, **spec["config"]["mode"])
         feed = getattr(slam, SENSORS[cfg.sensor][0])
@@ -288,12 +296,14 @@ def drive(spec: dict, seed: int, seconds: float, trace: bool, *, device="cuda",
             f"{traffic['warmup_frames']} warm-up frames, {slam.n_kf} keyframes mapped")
 
         times, passes, elapsed = [], [], 0.0
+        if probes is not None:
+            probes.open_window()
         while elapsed < seconds:
             t0 = time.perf_counter()
             slam.reset()
             sync()
             t_reset = time.perf_counter() - t0
-            k = 0
+            k, init = 0, None
             for k in range(n):
                 if k in checked_frames and not passes:
                     rec.take = True     # until the next replay
@@ -301,11 +311,13 @@ def drive(spec: dict, seed: int, seconds: float, trace: bool, *, device="cuda",
                 t0 = time.perf_counter()
                 with (torch.profiler.record_function(tracing.FRAME) if in_slice
                       else nullcontext()):
-                    feed(*frames[k], k / fps)
+                    pose = feed(*frames[k], k / fps)
                     sync()
                 dt = time.perf_counter() - t0 + (t_reset if k == 0 else 0.0)
+                if init is None and pose is not None:
+                    init = k
                 if probes is not None:
-                    probes.frame_ends(k)
+                    probes.frame_ends(k, slam.frame_id)
                 times.append(dt)
                 elapsed += dt
                 if elapsed >= seconds:
@@ -318,13 +330,17 @@ def drive(spec: dict, seed: int, seconds: float, trace: bool, *, device="cuda",
             if k == n - 1:
                 times[-1] += t_flush
                 elapsed += t_flush
-            passes.append(dict(_snapshot(slam, fps), fed=k + 1, complete=k == n - 1))
+            passes.append(_snapshot(slam, fps, k + 1, init, k == n - 1))
             p = passes[-1]
-            say(f"pass {len(passes)}: {k + 1} frames, {p['lost']} lost, "
-                f"{p['fed'] - p['logged']} not logged, {p['n_kf']} keyframes, "
+            say(f"pass {len(passes)}: {k + 1} frames, {p['init']} before the first pose, "
+                f"{p['lost']} lost, {p['fed'] - p['logged']} not logged, {p['n_kf']} keyframes, "
                 f"{len(p['points'])} points, {sum(times[-(k + 1):]):.3f} s "
                 f"(reset {t_reset:.3f} s, flush and drain {t_flush:.3f} s)")
         readings = probes.finish() if probes is not None else None
+        if readings is not None:
+            readings["frame_s"] = list(times)
+            say(f"traced window: {len(readings['spans'])} span records "
+                f"(the port keeps at most {readings['span_limit']})")
         memory_peak = torch.cuda.max_memory_allocated(device) if on_card else 0
         calls = [dict(name=c["name"], band=c["band"],
                       args=[a.cpu().numpy() for a in c["args"]],
@@ -333,6 +349,8 @@ def drive(spec: dict, seed: int, seconds: float, trace: bool, *, device="cuda",
         del slam, feed, frames
     finally:
         rec.uninstall()
+        if probes is not None:
+            probes.telemetry.tracing(False)
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
@@ -348,9 +366,10 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, *, device="cuda
     the CPU for the tests' tiny cell."""
     run = drive(spec, seed, seconds, trace, device=device, t_start=t_start, log=log)
     passes, readings, device = run["passes"], run["readings"], run["device"]
-    verdict = judge(passes, run["inputs"], run["calls"], spec["workload"]["name"])
+    sensor = spec["config"]["system"]["sensor"]
+    verdict = judge(passes, run["inputs"], run["calls"], spec["workload"]["name"], sensor)
     result = dict(correct=verdict["correct"], attempted=len(run["times"]),
-                  failed=int(sum(p["lost"] + max(0, p["fed"] - p["logged"]) for p in passes)))
+                  failed=failed_frames(passes, sensor))
     if trace:
         result["metrics"] = layer_metrics(spec["per_layer"], readings)
     else:
@@ -369,8 +388,24 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, *, device="cuda
         result["device"].update(busy_s=sl["busy_s"], window_s=sl["window_s"])
         result["breakdown"] = dict(device_ops=sl["device_ops"], idle_gaps=sl["idle_gaps"])
     result["readings"] = dict(passes=len(passes), stats=run["stats"], **verdict["readings"])
+    if trace and readings:
+        result["readings"].update(span_records=len(readings["spans"]),
+                                  span_limit=readings["span_limit"])
     result["checks"] = verdict["checks"]
     return result
+
+
+def _posed_from(p: dict, sensor: str) -> int:
+    """The frame of a pass from which every frame fed should come back with
+    a pose: a monocular pass's first tracked frame, else its first."""
+    return p.get("init", 0) if sensor == "monocular" else 0
+
+
+def failed_frames(passes, sensor: str) -> int:
+    """The result's ``failed``: frames fed that came back with no pose (lost,
+    or never logged), from each pass's ``_posed_from`` on."""
+    return int(sum(p["lost"] + max(0, p["fed"] - _posed_from(p, sensor) - p["logged"])
+                   for p in passes))
 
 
 def window_metrics(times) -> dict:
@@ -387,17 +422,25 @@ def window_metrics(times) -> dict:
 class _Probes:
     """What a traced run adds: CUDA events around each replay, a keyframe's
     mapping timed with the stream synchronized around each step (outside
-    the profiled slice, whose keyframes are left out of it), and the
-    profiled slice itself, taken again in a later pass when the profiler
-    lost the matchers' launches."""
+    the profiled slice, whose keyframes are left out of it), the profiled
+    slice itself, taken again in a later pass when the profiler lost the
+    matchers' launches, and the port's own spans and counters over the
+    window (``telemetry.tracing`` on from its first frame to its close),
+    with each frame's id and host stamps on the spans' clock."""
 
     def __init__(self, slam, rec, sync, trace_frames):
+        from refactored_orb_slam2_tpu_torch.utils import telemetry
+
+        self.telemetry = telemetry
         self.rec, self.sync = rec, sync
         self.start, self.stop = trace_frames
         self.prof = self.slice = None
         self.slice_calls: list = []
         self.in_slice = False
         self.mapped_s: list = []
+        self.frame_stamps: list = []
+        self.counters0: dict = {}
+        self.t_frame = 0
         rec.events = True
         steps = slam._coop_steps
         probes = self
@@ -429,7 +472,14 @@ class _Probes:
         for method in ("_dispatch_fused", "_commit_fused", "flush_pipeline", "reset"):
             slam.__dict__[method] = _spanned(getattr(slam, method), "slambench." + method.strip("_"))
 
+    def open_window(self) -> None:
+        """Spans from here to ``finish``: the set-up's records dropped."""
+        self.telemetry.spans()
+        self.counters0 = self.telemetry.snapshot()["counters"]
+        self.telemetry.tracing(True)
+
     def frame_starts(self, k: int) -> bool:
+        self.t_frame = time.time_ns()
         if self.slice is not None or not self.start <= k < self.stop:
             return False
         if k == self.start:
@@ -443,7 +493,8 @@ class _Probes:
         self.in_slice = True
         return True
 
-    def frame_ends(self, k: int) -> None:
+    def frame_ends(self, k: int, frame_id: int) -> None:
+        self.frame_stamps.append((frame_id, self.t_frame, time.time_ns()))
         if not self.in_slice or k != self.stop - 1:
             return
         self.in_slice = False
@@ -459,12 +510,20 @@ class _Probes:
         self.slice, self.slice_calls = got, calls
 
     def finish(self) -> dict:
+        """The readings, once the window has closed; tracing is off again."""
+        tel = self.telemetry
+        tel.tracing(False)
+        spans = tel.spans()
+        before = self.counters0
+        counters = {k: v - before.get(k, 0) for k, v in tel.snapshot()["counters"].items()
+                    if v != before.get(k, 0)}
         if self.prof is not None:       # the window closed inside the slice
             self.prof.__exit__(None, None, None)
         self.sync()
         graph_ms = [a.elapsed_time(b) for a, b in self.rec.event_pairs]
         return dict(graph_ms=graph_ms, mapped_s=self.mapped_s, slice=self.slice,
-                    slice_calls=self.slice_calls)
+                    slice_calls=self.slice_calls, spans=spans, span_limit=tel.MAX_SPANS,
+                    counters=counters, frame_stamps=self.frame_stamps)
 
 
 def _spanned(fn, label):
@@ -491,10 +550,14 @@ def layer_metrics(entries, readings) -> dict:
 
 
 # ---------------------------------------------------------------- verdict
-def judge(passes, inputs, calls, workload) -> dict:
+def judge(passes, inputs, calls, workload, sensor: str = "rgbd") -> dict:
     """The reference's readings over every pass and every checked call, and
-    each compared number against its limit (``checks/<workload>.json``)."""
-    judged = [reference.judge_pass(p, inputs["Tcw"], inputs["stamps"], inputs["surfaces"])
+    each compared number against its limit (``checks/<workload>.json``).
+    ``sensor`` is the configuration's: a monocular pass is aligned by a
+    similarity and counts its lost frames from its first tracked frame."""
+    mono = sensor == "monocular"
+    judged = [reference.judge_pass(p, inputs["Tcw"], inputs["stamps"], inputs["surfaces"],
+                                   with_scale=mono)
               for p in passes]
     sq = np.concatenate([j["sq_err"] for j in judged]) if judged else np.zeros(0)
     rms = lambda x: float(np.sqrt(np.mean(np.square(x)))) * 1e3 if len(x) else float("inf")
@@ -503,16 +566,25 @@ def judge(passes, inputs, calls, workload) -> dict:
     whole = ([(j, p) for j, p in zip(judged, passes) if p["complete"]]
              or list(zip(judged, passes)))
     full = [j for j, _ in whole]
+    pass_ate = [rms(np.sqrt(j["sq_err"])) for j in full]
     readings = dict(
         # frames fed in a whole pass that came back with no pose (lost, or
-        # never logged), worst pass
-        lost_frames=max(p["fed"] - p["logged"] + p["lost"] for _, p in whole),
+        # never logged), from its first frame on (a monocular pass: from its
+        # first tracked frame on), worst pass
+        lost_frames=max(p["fed"] - _posed_from(p, sensor) - p["logged"] + p["lost"]
+                        for _, p in whole),
         ate_mm=float(np.sqrt(sq.mean())) * 1e3 if len(sq) else float("inf"),
-        worst_pass_ate_mm=max(rms(np.sqrt(j["sq_err"])) for j in full),
+        worst_pass_ate_mm=max(pass_ate),
         rpe_mm=max(rms(j["rpe"]) for j in full),
         kf_mm=max(rms(j["kf_err"]) for j in full),
         pt_mm=max(float(np.median(j["pt_dist"])) * 1e3 if len(j["pt_dist"]) else float("inf")
                   for j in full),
+        # frames fed before a whole pass's first tracked frame, worst pass
+        init_frames=max(p.get("init", 0) for _, p in whole),
+        # the alignment's scale (1 when rigid): the worst pass's by ATE, and
+        # the median over whole passes
+        worst_pass_scale=full[int(np.argmax(pass_ate))]["scale"],
+        scale=float(np.median([j["scale"] for j in full])),
         calls_checked=len(calls),
         calls_by_kernel={k: sum(c["name"] == k for c in calls) for k in ("window_match",
                                                                          "hamming_best2")},

@@ -6,6 +6,9 @@ It judges what the timed path produced against what the benchmark made:
 - trajectory: the association and the Umeyama alignment of
   ``scripts/evaluate.py`` (frozen copies), the RMS camera-centre error
   (ATE) per pass, and the frame-to-frame relative translation error (RPE);
+  rigid for RGB-D and stereo, a similarity (``evaluate.py --scale``) for a
+  monocular pass, whose map has the initializer's unit: its scale ``s``
+  multiplies every distance read in the map;
 - map: the keyframes' camera centres and the map points' distance to the
   nearest surface of the rendered scene, both after the pass's alignment;
 - kernels: a plain Hamming best-2 (lowest column wins a tie; d2 equals d1
@@ -74,36 +77,44 @@ def surface_distance(points: np.ndarray, surfaces) -> np.ndarray:
     return best
 
 
-def judge_pass(run: dict, gt_Tcw: np.ndarray, stamps: np.ndarray, surfaces) -> dict:
+def judge_pass(run: dict, gt_Tcw: np.ndarray, stamps: np.ndarray, surfaces,
+               with_scale: bool = False) -> dict:
     """One pass of the window against the ground truth it was rendered from.
 
     ``run``: ``ts`` (n,) and ``Tcw`` (n, 4, 4) of the tracked frames,
     ``kf_frame`` (k,) the frame each valid keyframe was made from and
     ``kf_Tcw`` (k, 4, 4) its pose in the map, ``points`` (m, 3) the valid
-    map points.  Returns the squared centre errors of the frames (metres^2),
-    the RPE of consecutive tracked frames (metres), the keyframes' centre
-    errors and the points' surface distances (metres)."""
+    map points.  ``with_scale``: align by a similarity (a monocular map),
+    else rigidly.  Returns the alignment's scale, the squared centre errors
+    of the frames (metres^2), the RPE of consecutive tracked frames
+    (metres), the keyframes' centre errors and the points' surface
+    distances (metres)."""
     ie, ig = associate(run["ts"], stamps)
-    out = dict(n_tracked=int(len(ie)), sq_err=np.zeros(0), rpe=np.zeros(0),
-               kf_err=np.zeros(0), pt_dist=np.zeros(0))
+    out = dict(n_tracked=int(len(ie)), scale=float("nan"), sq_err=np.zeros(0),
+               rpe=np.zeros(0), kf_err=np.zeros(0), pt_dist=np.zeros(0))
     if len(ie) < 3:
         return out
     est, gt = np.asarray(run["Tcw"], np.float64)[ie], gt_Tcw[ig]
-    _, R, t = umeyama(centres(est), centres(gt))
-    aligned = centres(est) @ R.T + t
+    # rigid: s is 1.0, and scaling by it is exact
+    s, R, t = umeyama(centres(est), centres(gt), with_scale=with_scale)
+    place = lambda x: s * x @ R.T + t
+    out["scale"] = s
+    aligned = place(centres(est))
     out["sq_err"] = ((aligned - centres(gt)) ** 2).sum(1)
     consecutive = np.flatnonzero(np.diff(ig) == 1)
     if len(consecutive):
-        # camera k+1 -> camera k: the same whatever frame the map is in
+        # camera k+1 -> camera k: the same whatever frame the map is in, up
+        # to the map's unit
         inv = np.linalg.inv
         rel_e = est[consecutive] @ inv(est[consecutive + 1])
+        rel_e[:, :3, 3] *= s
         rel_g = gt[consecutive] @ inv(gt[consecutive + 1])
         out["rpe"] = np.linalg.norm((inv(rel_g) @ rel_e)[:, :3, 3], axis=1)
     if len(run["kf_frame"]):
-        kf_c = centres(run["kf_Tcw"]) @ R.T + t
+        kf_c = place(centres(run["kf_Tcw"]))
         out["kf_err"] = np.linalg.norm(kf_c - centres(gt_Tcw[run["kf_frame"]]), axis=1)
     if len(run["points"]):
-        out["pt_dist"] = surface_distance(np.asarray(run["points"], np.float64) @ R.T + t,
+        out["pt_dist"] = surface_distance(place(np.asarray(run["points"], np.float64)),
                                           surfaces)
     return out
 
