@@ -20,7 +20,13 @@ port runs twice:
 
 A monocular keyframe gets no depth points, so every point after the
 initial map comes from triangulation through the masked best-2 search.
+
+The port's two runs are traced (``telemetry.tracing``), one pass each: the
+initializer's spans and counters, and the benchmark's readers of them
+(``slambench/metrics/init.*``) on those readings.
 """
+
+import time
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +44,8 @@ from refactored_orb_slam2_tpu_torch import system as tsystem
 from refactored_orb_slam2_tpu_torch.io.convert import config_from_reference
 from refactored_orb_slam2_tpu_torch.solvers import initializer as tinit
 from refactored_orb_slam2_tpu_torch.system import SlamSystem as TSlam, TrackState
+from refactored_orb_slam2_tpu_torch.utils import telemetry
+from slambench import registry
 from test_torch_initializer import jax_sets
 from test_torch_sequence import gt_centers, lateral_traj
 
@@ -83,6 +91,7 @@ def runs():
         return torch.from_numpy(jax_sets(valid.numpy(), generator.initial_seed()))
 
     out = {}
+    telemetry.spans()
     try:
         for name in inits:
             slam = JSlam(CFG) if name == "jax" else TSlam(TCFG, device="cpu")
@@ -90,14 +99,27 @@ def runs():
             jinit.initialize_two_view = recorded(j_init, inits["jax"])
             tsystem.initialize_two_view = recorded(t_init, inits[name])
             tinit.draw_minimal_sets = sets_of_jax if name == "injected" else t_draw
+            # the port's runs are traced, as a traced benchmark window is:
+            # each frame's id and host stamps, the spans and the counters'
+            # change over the pass
+            telemetry.tracing(name != "jax")
+            counters0 = telemetry.snapshot()["counters"]
             n_pt_init = []
             returned = []
+            stamps = []
             for i, img in enumerate(frames):
+                t0 = time.time_ns()
                 returned.append(slam.track_monocular(img, i * 0.1))
+                stamps.append((slam.frame_id, t0, time.time_ns()))
                 if returned[-1] is not None and not n_pt_init:
                     n_pt_init.append(slam.n_pt)
-            out[name] = (slam, returned, n_pt_init[0])
+            telemetry.tracing(False)
+            counters = {k: v - counters0.get(k, 0)
+                        for k, v in telemetry.snapshot()["counters"].items()}
+            readings = dict(spans=telemetry.spans(), counters=counters, frame_stamps=stamps)
+            out[name] = (slam, returned, n_pt_init[0], readings)
     finally:
+        telemetry.tracing(False)
         jinit.initialize_two_view = j_init
         tsystem.initialize_two_view = t_init
         tinit.draw_minimal_sets = t_draw
@@ -107,7 +129,7 @@ def runs():
 def test_mono_initializes_at_the_same_frame_with_the_same_model(runs):
     _, out, inits = runs
     first = {name: [r is not None for r in returned].index(True)
-             for name, (_, returned, _) in out.items()}
+             for name, (_, returned, _, _) in out.items()}
     assert first["injected"] == first["jax"]
     # the accepted attempt is the last one; both chose the same model
     assert inits["jax"][-1][0] and inits["injected"][-1][0]
@@ -133,7 +155,7 @@ def test_mono_with_the_jax_sets_agrees_with_jax(runs):
 
 def test_mono_with_its_own_sampler_tracks(runs):
     traj, out, _ = runs
-    slam, returned, _ = out["own"]
+    slam, returned, _, _ = out["own"]
     assert slam.state == TrackState.OK, "monocular init never succeeded"
     assert sum(r is not None for r in returned) >= 10
     assert _ate(slam, traj) < ATE_BOUND_M
@@ -145,7 +167,7 @@ def test_mono_map_grows_by_triangulation_only(runs, name):
     """No feature of a monocular frame has depth, so keyframes add no depth
     points; the map still grows after the initial two-view map."""
     _, out, _ = runs
-    slam, _, n_pt_init = out[name]
+    slam, _, n_pt_init, _ = out[name]
     assert n_pt_init >= 50
     assert slam.n_pt > n_pt_init + 100
     assert (slam.last_frame.depth < 0).all() and (slam.last_frame.uvr[:, 2] < 0).all()
@@ -170,3 +192,53 @@ def test_mono_branches_of_the_facade():
         slam = TSlam(TCFG, device="cpu", **kwargs)
         assert (slam.pipelined, slam.cooperative) == (kwargs.get("pipelined", False),
                                                       kwargs.get("cooperative_mapping", False))
+
+
+INIT_STEPS = {"init.match", "init.two_view", "init.map", "init.ba"}
+INIT_READERS = ("init.ms_per_pass", "init.attempts_per_pass")
+
+
+@pytest.mark.parametrize("name", ["injected", "own"])
+def test_mono_init_spans_and_counters(runs, name):
+    """Every ``init`` span is keyed by its frame's id; the accepted one
+    holds the four steps; each pass runs at least one solve and accepts
+    once, and every solve is counted in the span of its frame."""
+    _, out, _ = runs
+    _, returned, _, r = out[name]
+    first = [p is not None for p in returned].index(True)
+    fed = [frame for frame, _, _ in r["frame_stamps"]]
+    init = [s for s in r["spans"] if s["name"] == "init"]
+    # the initializer runs on every frame up to the first tracked one
+    assert [s["key"] for s in init] == fed[:first + 1]
+    children = {}
+    for s in r["spans"]:
+        children.setdefault(s["parent"], []).append(s)
+    accepted = [s for s in init if s["counts"].get("init.accepted")]
+    assert len(accepted) == 1 and accepted[0]["key"] == fed[first]
+    assert {c["name"] for c in children[accepted[0]["id"]]} == INIT_STEPS
+    assert all(c["key"] == fed[first] for c in children[accepted[0]["id"]])
+    c = r["counters"]
+    assert c.get("init.accepted") == 1
+    assert c.get("init.attempts", 0) >= 1
+    assert c["init.attempts"] == sum(s["counts"].get("init.attempts", 0) for s in init)
+    assert c["init.attempts"] >= c.get("init.refused", 0) + 1
+
+
+@pytest.mark.parametrize("name", ["injected", "own"])
+def test_mono_init_readers(runs, name):
+    """Both readers give finite values on a pass that initialized, and
+    nothing on readings with no initialization in them."""
+    _, out, _ = runs
+    r = out[name][3]
+    readers = {m: registry.metric_reader(m) for m in INIT_READERS}
+    ms = readers["init.ms_per_pass"](r)
+    solved = {s["key"] for s in r["spans"]
+              if s["name"] == "init" and s["counts"].get("init.attempts")}
+    frame_ms = {f: (t1 - t0) * 1e-6 for f, t0, t1 in r["frame_stamps"]}
+    assert np.isfinite(ms) and ms == pytest.approx(sum(frame_ms[f] for f in solved))
+    assert readers["init.attempts_per_pass"](r) == r["counters"]["init.attempts"] >= 1
+    later = dict(spans=[s for s in r["spans"] if not s["name"].startswith("init")],
+                 counters={k: v for k, v in r["counters"].items() if not k.startswith("init.")},
+                 frame_stamps=r["frame_stamps"])
+    for read in readers.values():
+        assert read(later) is None and read({}) is None
