@@ -20,6 +20,12 @@ in from Python state that changes between frames) in one
   replay never overwrites a tensor that the map, the tracker's ``last_*``
   or an in-flight pipelined record still holds.
 
+The mechanism is ``StepGraph``; ``FusedGraph`` is the tracked frame's own
+class, so that whatever wraps ``FusedGraph.run`` to time or record the
+tracked frame's replays (``slambench``'s probes do) sees no other graph.
+``SlamSystem._ba_chunk`` wraps the local BA's LM chunk in a ``StepGraph``
+the same way.
+
 A kernel wrapper counts a launch when it enqueues the kernel, which inside
 a capture happens once, without a launch.  So the counts the capture added
 on its own thread are taken back and kept per graph, and every replay adds
@@ -59,14 +65,14 @@ from ..utils import telemetry
 #: the CUDA driver's graph node types that a replay runs as device events
 #: (CU_GRAPH_NODE_TYPE_KERNEL, _MEMCPY, _MEMSET)
 _WORK_NODES = (0, 1, 2)
-_capturing = threading.local()       # .graph: the FusedGraph capturing on this thread
+_capturing = threading.local()       # .graph: the StepGraph capturing on this thread
 _driver = None
 
 
 @contextlib.contextmanager
 def stage(name: str):
     """A stage of the fused step: a span, and inside a capture a mark of
-    the capturing graph's work nodes so far (``FusedGraph.stages``)."""
+    the capturing graph's work nodes so far (``StepGraph.stages``)."""
     with telemetry.timer(name):
         yield
     graph = getattr(_capturing, "graph", None)
@@ -160,7 +166,7 @@ def flat_tensors(x) -> list:
     return out
 
 
-class FusedGraph:
+class StepGraph:
     """One CUDA graph of ``step(**inputs)`` (keyword tensors or None, fixed
     shapes).  ``captures`` and ``replays`` count what it did; ``launches``
     holds the kernel launches of one replay; ``stages``, after a capture:
@@ -272,3 +278,7 @@ class FusedGraph:
         for name, n in self.launches.items():
             cuda_hamming.count(name, n)
         return _map_tensors(torch.clone, self.outputs)
+
+
+class FusedGraph(StepGraph):
+    """The tracked frame's graph (``SlamSystem._graph``)."""

@@ -37,8 +37,9 @@ What runs here, in the JAX package's order:
 - a keyframe (``_need_new_keyframe``, ``_create_keyframe``) is mapped by
   ``_mapping_steps``, a step generator: work sets, triangulation, fusion in
   both directions, recent-point culling and statistics, the local BA in
-  chunks of 5 LM iterations, keyframe culling, both descriptor searches
-  through the masked best-2 CUDA kernel.  Synchronous and pipelined mode
+  chunks of 5 LM iterations (on the card each chunk one CUDA graph replay,
+  ``_ba_chunk``), keyframe culling, both descriptor searches through the
+  masked best-2 CUDA kernel.  Synchronous and pipelined mode
   run it to completion before the next frame; ``cooperative_mapping=True``
   queues the keyframe and pumps one step per tracked frame
   (``_pump_mapping``), and a keyframe needed while mapping is busy aborts
@@ -97,7 +98,7 @@ from .backend import local_mapping as LM
 from .backend.async_mapper import AsyncMapper
 from .backend import loop_closing as LC
 from .frontend import tracking_kernels as TK
-from .frontend.fused_graph import FusedGraph, stage
+from .frontend.fused_graph import FusedGraph, StepGraph, stage
 from .frontend.frame import (
     FrameData, build_frame_mono, build_frame_rgbd, build_frame_stereo,
 )
@@ -282,6 +283,9 @@ class SlamSystem:
         # the tracked frame as one CUDA graph, captured at the first fused
         # frame on the card and kept across reset() (the shapes stay)
         self._graph: Optional[FusedGraph] = None
+        # the local BA's LM chunk as CUDA graphs (``_ba_chunk``), kept across
+        # reset() too: every window is gathered at the same padded shapes
+        self._ba_graphs: dict = {}
         self._eye4 = torch.eye(4, dtype=torch.float32, device=self.device)
         self._scalars: dict = {}
         # which tracking paths fired; global BAs run and dropped, local BAs
@@ -1841,6 +1845,8 @@ class SlamSystem:
             # tracker runs on another thread
             if self.mapper is None and not self._inflight:
                 self.last_pose = self.map.kf_pose[kf_slot]
+        else:
+            self._prime_ba_graph(window, fixed)
         yield
         if self.n_kf >= 5:
             # the redundancy ratios go out one step ahead of the culling
@@ -1976,8 +1982,7 @@ class SlamSystem:
             while done < n and not stopped:
                 k = min(5, n - done)
                 with telemetry.timer("mapping.ba_chunk", key):
-                    poses, points, lam = self._lm_chunk(self.cam, prob, poses, points, lam,
-                                                        n_iters=k, use_huber=True)
+                    poses, points, lam = self._ba_chunk(prob, poses, points, lam, k)
                     if self.mapper is not None:
                         # async worker: this chunk done before the next is
                         # queued, so that the abort flag is polled against
@@ -2015,6 +2020,78 @@ class SlamSystem:
                 f"{mcfg.local_ba_max_points} optimized (raise "
                 "MapConfig.local_ba_max_points)",
             )
+
+    def _ba_chunk(self, prob, poses, points, lam, n_iters: int, *, solver: str = "dense",
+                  n_cg: int = 0):
+        """``n_iters`` robust LM iterations of the local BA
+        (``self._lm_chunk``): one replay of the chunk's CUDA graph where
+        ``_ba_graph`` gives one (the chunk that captures it gives the
+        warm-up's eager result), else eager.  Each chunk counts one
+        ``mapping.ba_graph_replays`` or ``mapping.ba_eager_chunks``."""
+        graph = self._ba_graph(prob, n_iters, solver)
+        if graph is None:
+            telemetry.inc("mapping.ba_eager_chunks")
+            return self._lm_chunk(self.cam, prob, poses, points, lam, n_iters=n_iters,
+                                  use_huber=True, solver=solver, n_cg=n_cg)
+        inputs = dict(prob._asdict(), lm_poses=poses, lm_points=points, lm_lam=lam)
+        if graph.graph is None:
+            telemetry.inc("mapping.ba_eager_chunks")
+            return self._capture_ba(graph, inputs)
+        telemetry.inc("mapping.ba_graph_replays")
+        return graph.run(inputs)
+
+    def _ba_graph(self, prob, n_iters: int, solver: str = "dense"):
+        """The CUDA graph (``StepGraph``) of a chunk on the card: a full
+        chunk of 5 iterations of the stock ``BA.lm_chunk`` on a dense,
+        unsharded ``BAProblem``, one graph per stream, problem shapes and
+        chunk length.  None where the chunk runs eagerly: on the CPU, for a
+        sharded problem, the PCG solver, a shorter chunk or a replaced
+        ``_lm_chunk``."""
+        if (self.device.type != "cuda" or n_iters != 5 or solver != "dense"
+                or not isinstance(prob, BA.BAProblem) or self._lm_chunk is not BA.lm_chunk):
+            return None
+        key = (torch.cuda.current_stream(self.device).cuda_stream, n_iters) + tuple(
+            (t.shape, t.dtype) for t in prob)
+        graph = self._ba_graphs.get(key)
+        if graph is None:
+            # the captured step: the problem rebuilt from its ten tensors
+            def step(lm_poses, lm_points, lm_lam, **fields):
+                return self._lm_chunk(self.cam, BA.BAProblem(**fields), lm_poses, lm_points,
+                                      lm_lam, n_iters=n_iters, use_huber=True)
+            graph = self._ba_graphs[key] = StepGraph(step)
+        return graph
+
+    def _capture_ba(self, graph: StepGraph, inputs: dict):
+        """A BA chunk's capture (its result: the warm-up's).  On the
+        tracker's stream in async mode (the monocular initializer's BA) the
+        mapping worker is parked around it, as for the tracked frame's."""
+        if self.mapper is not None and (torch.cuda.current_stream(self.device)
+                                        != self._streams["mapping"]):
+            with self.mapper.stopped():
+                return graph.run(inputs)
+        return graph.run(inputs)
+
+    def _prime_ba_graph(self, window_mask, fixed_mask) -> None:
+        """On the card, while no local BA has run on this stream (a
+        keyframe mapped with fewer than 3 in the map): capture the chunk's
+        graph on this keyframe's window, its result dropped, so that the
+        first local BA replays it.  The window is gathered at the padded
+        shapes every later one has."""
+        if self.device.type != "cuda":
+            return
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        if any(key[0] == stream for key in self._ba_graphs):
+            return
+        mcfg = self.cfg.map
+        prob = map_ops.gather_ba_window(
+            self.map, window_mask, fixed_mask, self.inv_sigma2_table,
+            max_kfs=mcfg.local_ba_max_kfs, max_points=mcfg.local_ba_max_points,
+            max_obs=mcfg.local_ba_max_obs)[0]
+        graph = self._ba_graph(prob, 5)
+        if graph is not None:
+            self._capture_ba(graph, dict(
+                prob._asdict(), lm_poses=prob.kf_poses, lm_points=prob.points,
+                lm_lam=torch.full((), 1e-4, dtype=torch.float32, device=self.device)))
 
     def _cull_keyframes(self, kf_slot: int, cull_cands, ratios):
         """KeyFrameCulling (LocalMapping.cc:595-655): drop candidate

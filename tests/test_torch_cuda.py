@@ -9,6 +9,8 @@ hold the CUDA kernels against their plain versions, and the port on the
 card against the port on the CPU.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -666,6 +668,177 @@ def test_fused_graph_captured_while_the_mapping_worker_is_busy(cuda):
         assert slam.track_rgbd_device(*frames[i], i / 30.0) is not None
     assert slam.wait_mapping_idle(timeout=300) and done == [0]
     slam.shutdown()
+
+
+# ------------------------------------------------- the local BA's graph
+BA_COUNTERS = ("mapping.ba_eager_chunks", "mapping.ba_graph_replays")
+
+
+def _mapped_room(min_kfs=4):
+    """A system on the card that tracked and mapped the 320x240 room frames
+    (synchronous mapping, loop closing off) until it held ``min_kfs``
+    keyframes."""
+    cfg = SystemConfig(
+        sensor="rgbd",
+        camera=CameraConfig(fx=258.65, fy=258.25, cx=159.3, cy=127.65, bf=20.0,
+                            width=320, height=240),
+        orb=ORBConfig(n_features=500, n_levels=4),
+        map=MapConfig(max_keyframes=24, max_points=4096, max_obs_per_point=8),
+    )
+    world = W.scene_room(seed=11)
+    slam = SlamSystem(cfg, device="cuda")
+    slam.loop_closing_enabled = False
+    rng = np.random.default_rng(0)
+    for i, T in enumerate(W.traj_room_orbit(160, seed=5, span=0.45 * np.pi)):
+        img, depth = world.render_device(T, slam.cam, want_depth=True, noise=2.0, rng=rng,
+                                         device="cuda")
+        assert slam.track_rgbd_device(img, depth, i / 30.0) is not None
+        if slam.n_kf >= min_kfs:
+            return slam
+    raise AssertionError(f"{slam.n_kf} keyframes after 160 frames")
+
+
+def _ba_counts():
+    from refactored_orb_slam2_tpu_torch.utils import telemetry
+
+    return {name: telemetry.get(name) for name in BA_COUNTERS}
+
+
+def _counted(before):
+    return {name: n - before[name] for name, n in _ba_counts().items()}
+
+
+def test_local_ba_chunks_replay_equal_eager(cuda):
+    """Windows gathered from a map the card built: every 5-iteration chunk
+    through ``_ba_chunk`` is ``torch.equal`` to an eager ``BA.lm_chunk`` on
+    the same inputs, in phase 1 (the chunk that captures), in phase 2 after
+    ``classify_outliers`` replaced ``obs_valid``, and on a second window
+    copied into the same graph; one capture, one replay a later chunk."""
+    from refactored_orb_slam2_tpu_torch.models import map_ops
+    from refactored_orb_slam2_tpu_torch.optim import bundle_adjustment as BA
+
+    src = _mapped_room()
+    m, mcfg = src.map, src.cfg.map
+    slam = SlamSystem(src.cfg, device=cuda)          # no BA graph yet
+    slots = torch.arange(m.kf_valid.shape[0], device=cuda)
+    lam0 = lambda: torch.full((), 1e-4, dtype=torch.float32, device=cuda)
+
+    def gather(window, fixed):
+        return map_ops.gather_ba_window(m, window, fixed, slam.inv_sigma2_table,
+                                        max_kfs=mcfg.local_ba_max_kfs,
+                                        max_points=mcfg.local_ba_max_points,
+                                        max_obs=mcfg.local_ba_max_obs)[0]
+
+    replays = []
+
+    def chunk(prob, poses, points, lam):
+        want = BA.lm_chunk(slam.cam, prob, poses, points, lam, n_iters=5, use_huber=True)
+        got = slam._ba_chunk(prob, poses, points, lam, 5)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        replays.append(sum(g.replays for g in slam._ba_graphs.values()))
+        return got
+
+    before = _ba_counts()
+    prob = gather(m.kf_valid & (slots > 0), slots == 0)
+    # the map was adjusted while it was built: points moved by up to 1 cm
+    # give the LM steps to take
+    noise = torch.randn(prob.points.shape, device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(0))
+    prob = prob._replace(points=prob.points + 0.01 * noise.clamp(-1, 1))
+    poses, points, _ = chunk(prob, prob.kf_poses, prob.points, lam0())
+    assert not torch.equal(points, prob.points)                      # the LM moved
+    prob = prob._replace(obs_valid=BA.classify_outliers(slam.cam, prob, poses, points))
+    lam = lam0()
+    for _ in range(2):
+        poses, points, lam = chunk(prob, poses, points, lam)
+    prob = gather(m.kf_valid & (slots > 1), slots <= 1)
+    poses, points, lam = chunk(prob, prob.kf_poses, prob.points, lam0())
+    chunk(prob, poses, points, lam)
+    graph, = slam._ba_graphs.values()
+    assert graph.captures == 1 and replays == [0, 1, 2, 3, 4]
+    assert _counted(before) == {"mapping.ba_eager_chunks": 1, "mapping.ba_graph_replays": 4}
+
+
+def test_first_local_ba_replays_a_graph_captured_before_it(cuda):
+    """The chunk's graph is captured while the second keyframe is mapped,
+    before any local BA runs (three keyframes are needed): every chunk of
+    the local BAs that follow is a replay.  It is a ``StepGraph``, not a
+    ``FusedGraph``."""
+    from refactored_orb_slam2_tpu_torch.frontend.fused_graph import FusedGraph
+
+    before = _ba_counts()
+    src = _mapped_room()
+    graph, = src._ba_graphs.values()
+    counted = _counted(before)
+    # not the tracked frame's class, whose replays are timed as frames
+    assert not isinstance(graph, FusedGraph)
+    assert graph.captures == 1 and counted["mapping.ba_eager_chunks"] == 0
+    assert counted["mapping.ba_graph_replays"] == graph.replays >= 6
+
+
+def test_local_ba_and_initializer_ba_graphed_equal_eager(cuda):
+    """``_windowed_ba`` on a map the card built, on a system whose chunks
+    replay a graph and on one whose ``_lm_chunk`` is replaced (which runs
+    eagerly): a 5/10 local BA, then the monocular initializer's 20/0 BA
+    (one keyframe free, one fixed) on the result, write the same maps to
+    the bit; the second BA replays the first's graph."""
+    from refactored_orb_slam2_tpu_torch.optim import bundle_adjustment as BA
+
+    src = _mapped_room()
+    slots = torch.arange(src.map.kf_valid.shape[0], device=cuda)
+    maps, counts, graphs = {}, {}, {}
+    for graphed in (True, False):
+        slam = SlamSystem(src.cfg, device=cuda)
+        if not graphed:
+            slam._lm_chunk = lambda *a, **k: BA.lm_chunk(*a, **k)
+        slam.map = src.map
+        before = _ba_counts()
+        slam._windowed_ba(src.map.kf_valid & (slots > 0), slots == 0, 5, 10)
+        slam._windowed_ba(slots == 1, slots == 0, 20, 0)
+        maps[graphed], counts[graphed], graphs[graphed] = slam.map, _counted(before), slam._ba_graphs
+    for f in dataclasses.fields(maps[True]):
+        assert torch.equal(getattr(maps[True], f.name), getattr(maps[False], f.name)), f.name
+    assert not torch.equal(maps[True].kf_pose, src.map.kf_pose)
+    graph, = graphs[True].values()
+    assert graph.captures == 1 and graph.replays == 6 and graphs[False] == {}
+    assert counts == {True: {"mapping.ba_eager_chunks": 1, "mapping.ba_graph_replays": 6},
+                      False: {"mapping.ba_eager_chunks": 7, "mapping.ba_graph_replays": 0}}
+
+
+def test_local_ba_chunk_eager_where_no_graph_applies(cuda):
+    """A sharded problem, the PCG solver, a chunk short of 5 iterations and
+    a replaced ``_lm_chunk`` run eagerly, equal to ``BA.lm_chunk``, and
+    capture nothing."""
+    from refactored_orb_slam2_tpu_torch.frontend.fused_graph import flat_tensors
+    from refactored_orb_slam2_tpu_torch.models import map_ops
+    from refactored_orb_slam2_tpu_torch.optim import bundle_adjustment as BA
+    from refactored_orb_slam2_tpu_torch.parallel.dist_ba import make_mesh, shard_ba_problem
+
+    src = _mapped_room()
+    m, mcfg = src.map, src.cfg.map
+    slam = SlamSystem(src.cfg, device=cuda)
+    slots = torch.arange(m.kf_valid.shape[0], device=cuda)
+    prob = map_ops.gather_ba_window(m, m.kf_valid & (slots > 0), slots == 0,
+                                    slam.inv_sigma2_table, max_kfs=mcfg.local_ba_max_kfs,
+                                    max_points=mcfg.local_ba_max_points,
+                                    max_obs=mcfg.local_ba_max_obs)[0]
+    sharded = shard_ba_problem(prob, make_mesh(devices=[cuda]))
+    before = _ba_counts()
+    cases = [(sharded, 5, dict()), (prob, 5, dict(solver="pcg", n_cg=20)), (prob, 3, dict())]
+    for p, n, kw in cases:
+        got = slam._ba_chunk(p, p.kf_poses, p.points, BA.initial_damping(p), n, **kw)
+        want = BA.lm_chunk(slam.cam, p, p.kf_poses, p.points, BA.initial_damping(p),
+                           n_iters=n, use_huber=True, **kw)
+        got, want = flat_tensors(got), flat_tensors(want)
+        assert len(got) == len(want) == 3 and all(map(torch.equal, got, want))
+    calls = []
+    slam._lm_chunk = lambda *a, **k: calls.append(k) or BA.lm_chunk(*a, **k)
+    got = slam._ba_chunk(prob, prob.kf_poses, prob.points, BA.initial_damping(prob), 5)
+    want = BA.lm_chunk(slam.cam, prob, prob.kf_poses, prob.points, BA.initial_damping(prob),
+                       n_iters=5, use_huber=True)
+    assert len(calls) == 1 and all(torch.equal(a, b) for a, b in zip(got, want))
+    assert slam._ba_graphs == {}
+    assert _counted(before) == {"mapping.ba_eager_chunks": 4, "mapping.ba_graph_replays": 0}
 
 
 # ------------------------------------------------------------- distribution

@@ -46,6 +46,8 @@ from refactored_orb_slam2_tpu_torch.io.convert import (
 from refactored_orb_slam2_tpu_torch.models import map_ops as TMO
 from refactored_orb_slam2_tpu_torch.models import map_state as TMS
 from refactored_orb_slam2_tpu_torch.optim import bundle_adjustment as TBA
+from refactored_orb_slam2_tpu_torch.system import SlamSystem as TSlam
+from refactored_orb_slam2_tpu_torch.utils import telemetry
 
 # One intra-op thread: at these sizes PyTorch's threads gain nothing, and
 # several test workers with a thread per core each spin against one another.
@@ -339,6 +341,45 @@ def test_scatter_ba_window_equal(chain):
     g = map_state_to_numpy(got)
     np.testing.assert_array_equal(g["kf_pose"], np.asarray(ref.kf_pose))
     np.testing.assert_array_equal(g["pt_pos"], np.asarray(ref.pt_pos))
+
+
+BA_COUNTERS = ("mapping.ba_eager_chunks", "mapping.ba_graph_replays")
+
+
+def test_windowed_ba_steps_on_cpu_run_the_eager_chunk_loop(chain):
+    """On the CPU the local BA's chunks run eagerly: a 5/10 BA counts three
+    ``mapping.ba_eager_chunks`` and no ``mapping.ba_graph_replays``, and the
+    map it writes equals that of the loop of ``BA.lm_chunk`` calls it
+    stands for: the gather, one chunk, the outlier gate, two chunks from a
+    fresh damping, the gate again and the scatter."""
+    ws = chain["ws"]
+    window, fixed = torch.from_numpy(np.array(ws[4])), torch.from_numpy(np.array(ws[5]))
+    slam = TSlam(TCFG, device="cpu")
+    slam.map = _port(chain["S5"])
+    before = {name: telemetry.get(name) for name in BA_COUNTERS}
+    steps = sum(1 for _ in slam._windowed_ba_steps(window, fixed, 5, 10))
+    assert steps == 5                   # the gather, 1 chunk, the gate, 2 chunks
+    assert {name: telemetry.get(name) - n for name, n in before.items()} == {
+        "mapping.ba_eager_chunks": 3, "mapping.ba_graph_replays": 0}
+
+    cam = t_cam(TCFG.camera)
+    state = _port(chain["S5"])
+    prob, kf_sel, pt_sel, obs_sel, _ = TMO.gather_ba_window(
+        state, window, fixed, slam.inv_sigma2_table, max_kfs=64, max_points=4096, max_obs=16)
+    lam0 = lambda: torch.full((), 1e-4, dtype=torch.float32)
+    poses, points, _ = TBA.lm_chunk(cam, prob, prob.kf_poses, prob.points, lam0(), n_iters=5,
+                                    use_huber=True)
+    prob = prob._replace(obs_valid=TBA.classify_outliers(cam, prob, poses, points))
+    lam = lam0()
+    for _ in range(2):
+        poses, points, lam = TBA.lm_chunk(cam, prob, poses, points, lam, n_iters=5,
+                                          use_huber=True)
+    ref = TMO.scatter_ba_window(state, prob, kf_sel, pt_sel, obs_sel, poses, points,
+                                TBA.classify_outliers(cam, prob, poses, points))
+    got, want = map_state_to_numpy(slam.map), map_state_to_numpy(ref)
+    for name in want:
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+    assert not np.array_equal(want["kf_pose"], chain["S5"].kf_pose)     # the BA moved
 
 
 def test_keyframe_redundancy_and_remove_keyframe_equal(run):

@@ -242,3 +242,21 @@ def test_mono_init_readers(runs, name):
                  frame_stamps=r["frame_stamps"])
     for read in readers.values():
         assert read(later) is None and read({}) is None
+
+
+@pytest.mark.parametrize("name", ["injected", "own"])
+def test_ba_graph_pct_reader_on_cpu(runs, name):
+    """On the CPU every local-BA chunk runs eagerly, the initializer's four
+    among them: ``mapping.ba_graph_pct`` reads 0, and nothing on readings
+    without a chunk."""
+    _, out, _ = runs
+    r = out[name][3]
+    c = r["counters"]
+    assert c.get("mapping.ba_graph_replays", 0) == 0
+    # 20 iterations at initialization, then 3 chunks a mapped keyframe
+    assert c["mapping.ba_eager_chunks"] >= 4 and (c["mapping.ba_eager_chunks"] - 4) % 3 == 0
+    read = registry.metric_reader("mapping.ba_graph_pct")
+    assert read(r) == 0.0
+    assert read(dict(r, counters={"mapping.ba_graph_replays": 3,
+                                  "mapping.ba_eager_chunks": 1})) == 75.0
+    assert read({}) is None and read(dict(r, counters={})) is None
