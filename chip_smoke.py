@@ -133,9 +133,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    host copies of all 160 frames on a fresh system through track_rgbd, the
    TUM, KITTI and keyframe exports and a ground-truth TUM file, and
    scripts/evaluate.py (a subprocess) on the pair: ATE under ATE_BOUND_M;
-   its median frame beside phase 4's device-entry one.  Last, one pass of
-   the port's bench (refactored_orb_slam2_tpu_torch/bench.py), its JSON
-   line printed.  Both kernels must launch on this path ("io").
+   its median frame beside phase 4's device-entry one.  Both kernels must
+   launch on this path ("io").
 12. pipelined — on fresh RGB-D systems over phase 4's frames: (a) orbit
    frames 0-59 (keyframes 0, 41, 53, 58), each tracked frame through the
    fused step's CUDA graph and the eager step on the same inputs, every
@@ -346,6 +345,9 @@ RELOC_BOUND_M = {path: min(3 * err, 0.05) for path, (_, err) in JAX_RELOC.items(
 # keyframe from the 12th on and closes no loop on the room orbit, so its
 # ATE is the one above.
 JAX_LOOP_DETECTION = {"rgbd": (0, []), "stereo": (0, []), "monocular": (147, [])}
+# The JAX bench's SlamSystem mode (bench.py:66-67): cooperative mapping,
+# pipelined at depth 3.  Phases 7, 8, 12 (c), 13 and 17 (f) run it.
+BENCH_MODE = dict(cooperative_mapping=True, pipelined=True, pipeline_depth=3)
 # Phase 10, the street circuit: frames, block and road width of the
 # JAX package's loop test, its rendering focal and the tracker's offset.
 CIRCUIT_FRAMES, CIRCUIT_BLOCK, CIRCUIT_ROAD_W = 140, 22.0, 8.0
@@ -1645,12 +1647,10 @@ def _io(slam, frames, poses, device_median_ms: float, card: str) -> dict:
     load it into a fresh system (every bank equal), relocalize on the loaded
     map in localization-only mode and map on from it; then the dataset
     driver's loop over host copies of the frames on a fresh system, its
-    exports read by scripts/evaluate.py, and one pass of the port's bench.
-    Returns the launches of 11.3-11.6 (the "io" path)."""
-    import io
+    exports read by scripts/evaluate.py.  Returns the launches of 11.3-11.5
+    (the "io" path)."""
     import tempfile
 
-    from refactored_orb_slam2_tpu_torch import bench
     from refactored_orb_slam2_tpu_torch.io.checkpoint import load_map, save_map
     from refactored_orb_slam2_tpu_torch.ops import cuda_hamming
     from refactored_orb_slam2_tpu_torch.scripts.run_dataset import track_frames
@@ -1783,14 +1783,6 @@ def _io(slam, frames, poses, device_median_ms: float, card: str) -> dict:
               f"{card})")
         del driven
 
-    # ---- 11.6 one pass of the port's bench
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        result = bench.main(passes=1)
-    line = buf.getvalue().strip().splitlines()[-1]
-    if json.loads(line) != result or result["device"] != card:
-        raise AssertionError(f"io: the bench printed {line!r}")
-    print(f"io, bench (python -m refactored_orb_slam2_tpu_torch.bench, one pass): {line}")
     print(f"io: phase 11 took {time.perf_counter() - t_phase:.1f} s (host clock; {card})")
     return dict(cuda_hamming.launches)
 
@@ -1839,7 +1831,6 @@ def _pipelined(frames, poses, phase4: dict, card: str) -> dict:
     (cooperative mapping, pipelined at depth 3) against the JAX package's
     run of it.  Returns the launches of (c), the "pipelined" path, and (c)'s
     median and mean call."""
-    from refactored_orb_slam2_tpu_torch import bench
     from refactored_orb_slam2_tpu_torch.frontend.fused_graph import flat_tensors
     from refactored_orb_slam2_tpu_torch.ops import cuda_hamming
     from refactored_orb_slam2_tpu_torch.system import SlamSystem, TrackState
@@ -1902,7 +1893,7 @@ def _pipelined(frames, poses, phase4: dict, card: str) -> dict:
     del pipe
 
     # ---- 12 (c) the JAX bench's mode
-    coop = SlamSystem(cfg, device="cuda", **bench.BENCH_MODE)
+    coop = SlamSystem(cfg, device="cuda", **BENCH_MODE)
     mapped, steps = [], coop._coop_steps
 
     def counted(kf_slot):
@@ -1945,7 +1936,7 @@ def _pipelined(frames, poses, phase4: dict, card: str) -> dict:
         raise AssertionError(f"pipelined (c): window_match launched {launches['window_match']} "
                              f"times in {len(frames) - 1} fused frames")
     n_new = coop.n_kf - 1
-    print(f"pipelined (c), the JAX bench's mode {bench.BENCH_MODE}: {len(coop.tracked_logs())}/"
+    print(f"pipelined (c), the JAX bench's mode {BENCH_MODE}: {len(coop.tracked_logs())}/"
           f"{len(frames)} tracked, lost {lost}, n_kf {coop.n_kf} at frames {kf_c} (JAX on the CPU: "
           f"{jax_coop['n_kf']} at {jax_coop['kf_frames']}), stamped "
           f"{coop.map.kf_frame_id[:coop.n_kf].tolist()}, n_pt {coop.n_pt} (JAX "
@@ -1984,10 +1975,9 @@ def _bench_mode(cfg, frames, poses, card: str) -> None:
     device entry point on a system in the JAX bench's mode (cooperative
     mapping, pipelined at depth 3); every frame from the first tracked one
     tracked (monocular: 90%), the mapping drained."""
-    from refactored_orb_slam2_tpu_torch import bench
     from refactored_orb_slam2_tpu_torch.system import SlamSystem
 
-    slam = SlamSystem(cfg, device="cuda", **bench.BENCH_MODE)
+    slam = SlamSystem(cfg, device="cuda", **BENCH_MODE)
     out, ms, _ = _timed_run(slam, frames[:N_BENCH_MODE])
     if not slam.wait_mapping_idle(timeout=300):
         raise AssertionError(f"{cfg.sensor}, bench mode: mapping did not drain")
@@ -1998,7 +1988,7 @@ def _bench_mode(cfg, frames, poses, card: str) -> None:
                              f"from frame {first}")
     gt = gt_centres(poses)[ids]
     ate = (ate_rmse_sim3 if cfg.sensor == "monocular" else ate_rmse)(slam.camera_centers(), gt)
-    print(f"{cfg.sensor}, the JAX bench's mode {bench.BENCH_MODE}: {len(ids)}/{len(out) - first} "
+    print(f"{cfg.sensor}, the JAX bench's mode {BENCH_MODE}: {len(ids)}/{len(out) - first} "
           f"tracked from frame {first}, n_kf {slam.n_kf}, n_pt {slam.n_pt}, "
           f"{'Sim3-aligned ' if cfg.sensor == 'monocular' else ''}ATE {ate:.6f} m, graph "
           f"captures {slam._graph.captures}, median call {np.median(ms[first + 2:]):.2f} ms "
@@ -2030,7 +2020,6 @@ def _async_room(frames, poses, phase4: dict, coop: dict | None, card: str) -> di
     shutdown (which raises a worker's exception), the ATE under
     ASYNC_ATE_BOUND_M.  Each frame is timed to the end of the tracker's
     stream (the workers' streams run on).  Returns the launches."""
-    from refactored_orb_slam2_tpu_torch import bench
     from refactored_orb_slam2_tpu_torch.ops import cuda_hamming
     from refactored_orb_slam2_tpu_torch.system import SlamSystem
     from refactored_orb_slam2_tpu_torch.utils import telemetry
@@ -2040,7 +2029,7 @@ def _async_room(frames, poses, phase4: dict, coop: dict | None, card: str) -> di
     if coop is None:
         # phase 12 did not run in this call: the cooperative mode's times
         # from a run of its own, for the comparison
-        other = SlamSystem(cfg, device="cuda", **bench.BENCH_MODE)
+        other = SlamSystem(cfg, device="cuda", **BENCH_MODE)
         _, ms_c, _ = _timed_run(other, frames)
         other.wait_mapping_idle(timeout=300)
         coop = dict(median_ms=float(np.median(ms_c[2:])), mean_ms=float(ms_c[2:].mean()),
@@ -3537,7 +3526,6 @@ def _pipeline_loss(frames, poses, card: str) -> dict:
     frames lost; in both, the graph's replays equal to the eager step on the
     three frames after the recovery and one capture.  Returns the launches
     (the comparisons' taken out)."""
-    from refactored_orb_slam2_tpu_torch import bench
     from refactored_orb_slam2_tpu_torch.frontend.fused_graph import flat_tensors
     from refactored_orb_slam2_tpu_torch.ops import cuda_hamming
     from refactored_orb_slam2_tpu_torch.system import SlamSystem, TrackState
@@ -3547,7 +3535,7 @@ def _pipeline_loss(frames, poses, card: str) -> dict:
     total = dict.fromkeys(cuda_hamming.SOURCES, 0)
 
     def case(blank_at, n_after):
-        slam = SlamSystem(cfg, device="cuda", **bench.BENCH_MODE)
+        slam = SlamSystem(cfg, device="cuda", **BENCH_MODE)
         decomposed, lost = [], []
         track, log = slam._track, slam._log_frame
 
@@ -4040,7 +4028,7 @@ def main(mode: str = "") -> None:
 
     if not only:
         # ---- 11. I/O and the drivers: that system's map saved and loaded,
-        # the dataset driver's loop, the bench
+        # the dataset driver's loop
         by_path["io"] = _io(slam, frames, poses, r["median_ms"], card)
     del slam
 

@@ -18,9 +18,9 @@ loop closing, map checkpoints in the JAX package's file format
 figures (``io/viz.py``), with two hand-written CUDA kernels: the fused
 window matcher and the masked best-2 matcher (``ops/cuda_hamming.py`` over
 ``csrc/window_match.cu`` and ``csrc/masked_best2.cu``).  Its command-line
-programs run with ``python -m``: the dataset driver
-(``refactored_orb_slam2_tpu_torch.scripts.run_dataset``) and the bench
-(``refactored_orb_slam2_tpu_torch.bench``).
+programs run with ``python -m``, the dataset driver among them
+(``refactored_orb_slam2_tpu_torch.scripts.run_dataset``); the benchmark
+that times it is ``python3 -m slambench.run``.
 """
 
 __version__ = "0.1.0"

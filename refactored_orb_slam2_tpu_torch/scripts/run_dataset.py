@@ -166,8 +166,8 @@ def main(argv=None) -> dict:
                          "before the next dispatch, sync-identical gates; "
                          "3 = deepest overlap, keyframe decisions land late)")
     ap.add_argument("--pipelined", action="store_true",
-                    help="optimistic lag-1 dispatch: per-frame gates resolve "
-                         "one frame late")
+                    help="pipelined dispatch at depth 1: each frame's gates "
+                         "resolve in the next frame's call")
     ap.add_argument("--localization-after", type=int, default=0,
                     help="switch to localization-only mode (no mapping) after "
                          "N frames (0 = never; viewer menu toggle in the "

@@ -16,15 +16,16 @@ What runs here, in the JAX package's order:
   frame build, motion-model match with the 2x window retry, pose-only LM,
   local-map selection and the fused window matcher (CUDA kernel), a second
   pose-only LM, the counters and ``Tcr``), on the card one CUDA graph replay
-  (``frontend/fused_graph.py``, the counterpart of ``_jit_fused_track``),
-  then ``_commit_fused``.  When the motion model fails,
-  TrackReferenceKeyFrame and the decomposed local map take over; when that
-  fails too, or too few local-map inliers remain, the frame is lost;
-- ``pipelined=True``: ``_track_pipelined`` dispatches each frame against the
-  tracker's uncommitted device state and commits it ``pipeline_depth``
-  calls later (``track_*`` then returns the pose as a device tensor); a
-  frame lost at its commit sends the frames in flight behind it through the
-  decomposed path (``flush_pipeline``);
+  (``frontend/fused_graph.py``, the counterpart of ``_jit_fused_track``).
+  ``_track_fused`` dispatches each frame against the tracker's uncommitted
+  device state and ``_commit_fused`` commits it ``pipeline_depth`` calls
+  later: in the same call in synchronous mode (depth 0), later with
+  ``pipelined=True`` (``track_*`` then returns the pose as a device
+  tensor).  The commit applies the visibility counters.  When the motion
+  model fails, TrackReferenceKeyFrame and the decomposed local map take
+  over; when that fails too, or too few local-map inliers remain, the frame
+  is lost, and the frames in flight behind it go through the decomposed
+  path (``flush_pipeline``);
 - a lost system with at most 5 keyframes resets and initializes again on a
   later frame (Tracking.cc:421-428); with more, or with the map frozen, every
   later frame tries ``_relocalize`` (Tracking.cc:1217-1363): BoW candidates
@@ -250,14 +251,14 @@ class SlamSystem:
             np.float32,
         )
         self.loop_closing_enabled = True
-        # optimistic dispatch: track_* returns the pose as a device tensor
-        # and resolves the frame's gates ``pipeline_depth`` calls later.
-        # Depth 1 commits the previous frame before each dispatch, as
-        # synchronous mode does; a deeper pipeline lets keyframe decisions
-        # land up to depth - 1 frames late (the JAX package measured its ATE
-        # 0.104 m at depth 3 against 0.0027 m at depth 1 on its fixture).
-        self.pipelined = pipelined
-        self.pipeline_depth = max(1, int(pipeline_depth))
+        # a tracked frame is committed ``pipeline_depth`` calls after its
+        # dispatch: 0 in synchronous mode, which commits it in the same call.
+        # Pipelined, track_* returns the pose as a device tensor; depth 1
+        # commits the previous frame before each dispatch and gives sync
+        # mode's map, a deeper pipeline lets keyframe decisions land up to
+        # depth - 1 frames late (the JAX package measured its ATE 0.104 m at
+        # depth 3 against 0.0027 m at depth 1 on its fixture).
+        self.pipeline_depth = max(1, int(pipeline_depth)) if pipelined else 0
         # cooperative mapping: local mapping advances as a step generator
         # pumped between frame dispatches on the tracking thread
         self.cooperative = cooperative_mapping
@@ -504,8 +505,6 @@ class SlamSystem:
                 self._pending_pose_jump = None
             if self.state == TrackState.OK and not self.localization_only:
                 # the steady state: the whole per-frame path is one fused step
-                if self.pipelined:
-                    return self._track_pipelined(raw_a, raw_b, timestamp)
                 return self._track_fused(raw_a, raw_b, timestamp)
             self.flush_pipeline()
             # initialization, a frame after a loss and localization-only frames
@@ -636,16 +635,16 @@ class SlamSystem:
     def _fused_step(self, raw_a, raw_b, last_pt, last_octave, last_angle, last_pose,
                     velocity, have_vel, ref_kf, min_obs, kf_pose, kf_point_idx,
                     kf_feat_valid, pt_pos, pt_valid, pt_desc, pt_normal, pt_min_dist,
-                    pt_max_dist, pt_visible, pt_found, pt_obs_kf):
+                    pt_max_dist, pt_obs_kf):
         """The whole per-frame OK-state path as device work with no host
         read (the JAX ``_build_fused_track.step``).  It reads tensors only:
         the velocity is the identity where ``have_vel`` is false, and the
         reference keyframe and the observation bar are device int32, so
         that one CUDA graph of it serves every frame
         (``frontend/fused_graph.py``).  Returns (frame, [Tcw, Tcr], map
-        point per feature, the local map's points, the visibility and found
-        counters after this frame, the (6,) int32 scalars).  Its seven
-        stages are ``stage`` marks, from the frame build to the counters."""
+        point per feature, the local map's points, the (6,) int32 scalars);
+        the commit applies the visibility counters.  Its seven stages are
+        ``stage`` marks, from the frame build to the counts."""
         cam, cfg = self.cam, self.cfg
         n_levels = cfg.orb.n_levels
         P = pt_pos.shape[0]
@@ -696,11 +695,6 @@ class SlamSystem:
             pt2 = torch.where(o2.inlier, r2.pt_idx, -1)
 
         with stage("track.counts"):
-            # visibility / found statistics (sync-mode map update)
-            new_visible = map_ops.add_rows(pt_visible,
-                                           torch.where(local.idx >= 0, local.idx, P), 1)
-            new_found = map_ops.add_rows(pt_found, torch.where(pt2 >= 0, pt2, P), 1)
-
             # NeedNewKeyFrame close counts (Tracking.cc:911-927)
             close = (frame.depth > 0) & (frame.depth < self.th_depth_m) & frame.valid
             tracked_close = (close & (pt2 >= 0)).sum(dtype=torch.int32)
@@ -724,7 +718,7 @@ class SlamSystem:
                 tracked_close, untracked_close, ref_tracked,
             ]).to(torch.int32)
             poses_out = torch.stack([o2.Tcw, Tcr])
-        return frame, poses_out, pt2, local.idx, new_visible, new_found, scalars
+        return frame, poses_out, pt2, local.idx, scalars
 
     def _scalar(self, value, dtype) -> torch.Tensor:
         """A 0-dim device tensor per (value, dtype), made once: the graph's
@@ -748,8 +742,7 @@ class SlamSystem:
             min_obs=self._scalar(3 if self.n_kf > 2 else 2, torch.int32),   # Tracking.cc:897
             kf_pose=m.kf_pose, kf_point_idx=m.kf_point_idx, kf_feat_valid=m.kf_feat_valid,
             pt_pos=m.pt_pos, pt_valid=m.pt_valid, pt_desc=m.pt_desc, pt_normal=m.pt_normal,
-            pt_min_dist=m.pt_min_dist, pt_max_dist=m.pt_max_dist, pt_visible=m.pt_visible,
-            pt_found=m.pt_found, pt_obs_kf=m.pt_obs_kf,
+            pt_min_dist=m.pt_min_dist, pt_max_dist=m.pt_max_dist, pt_obs_kf=m.pt_obs_kf,
         )
 
     def _run_fused(self, inputs: dict):
@@ -771,24 +764,23 @@ class SlamSystem:
         the pose stack and the scalars start their copy into pinned host
         memory at once (``_start_read``)."""
         with telemetry.timer("track.dispatch", self.frame_id):
-            frame, poses_out, pt2, local_idx, nvis, nfnd, sc = self._run_fused(
+            frame, poses_out, pt2, local_idx, sc = self._run_fused(
                 self._fused_inputs(raw_a, raw_b))
-            rec = dict(frame=frame, poses_out=poses_out, pt2=pt2, local_idx=local_idx,
-                       nvis=nvis, nfnd=nfnd, sc=sc, timestamp=timestamp, frame_id=self.frame_id,
-                       ref_kf=self.ref_kf,
+            rec = dict(frame=frame, poses_out=poses_out, pt2=pt2, local_idx=local_idx, sc=sc,
+                       timestamp=timestamp, frame_id=self.frame_id, ref_kf=self.ref_kf,
                        prev_pose=self.last_pose, prev_frame=self.last_frame,
                        prev_pt_idx=self.last_pt_idx, prev_velocity=self.velocity)
             rec["reads"] = (_start_read(poses_out), _start_read(sc))
             return rec
 
-    def _commit_fused(self, rec: dict, *, optimistic: bool) -> Optional[np.ndarray]:
+    def _commit_fused(self, rec: dict) -> Optional[np.ndarray]:
         """The per-frame state machine on a resolved fused record (the JAX
-        ``_commit_fused``).  ``optimistic``: the tracker's ``last_*``
-        already hold this record's outputs (pipelined mode) and roll back to
-        the record's ``prev_*`` before a fallback or a loss.  Returns the
-        frame's pose or None.  On the motion model's path with no keyframe it
-        makes two host reads, the pose stack and the scalars
-        (``_finish_read``); the fallback, a loss and a keyframe read more."""
+        ``_commit_fused``).  The tracker's ``last_*`` already hold this
+        record's outputs (``_track_fused``) and roll back to the record's
+        ``prev_*`` before a fallback or a loss.  Returns the frame's pose or
+        None.  On the motion model's path with no keyframe it makes two host
+        reads, the pose stack and the scalars (``_finish_read``); the
+        fallback, a loss and a keyframe read more."""
         with telemetry.timer("track.commit", rec["frame_id"]):
             with telemetry.timer("track.read"):
                 poses_np, s = (_finish_read(r) for r in rec["reads"])
@@ -798,23 +790,14 @@ class SlamSystem:
             ok_motion = n_motion >= 20 and n_inl1 >= self.cfg.tracking.min_inliers_track
 
             def rollback():
-                if optimistic:
-                    self.last_pose, self.last_frame = rec["prev_pose"], rec["prev_frame"]
-                    self.last_pt_idx, self.velocity = rec["prev_pt_idx"], rec["prev_velocity"]
+                self.last_pose, self.last_frame = rec["prev_pose"], rec["prev_frame"]
+                self.last_pt_idx, self.velocity = rec["prev_pt_idx"], rec["prev_velocity"]
 
             if ok_motion:
                 self.stats["motion_tracks"] += 1
                 pose, pt_idx = rec["poses_out"][0], rec["pt2"]
                 n_map_inliers = n_map
-                if self.mapper is not None:
-                    # the mapper owns the map: buffered for the next keyframe
-                    self._buffer_visibility(rec["local_idx"], pt_idx)
-                elif optimistic:
-                    # the map may have moved on since the dispatch: the counters
-                    # go in as index updates against the live banks
-                    self.map = LM.update_visibility(self.map, rec["local_idx"], pt_idx)
-                else:
-                    self.map = self.map.replace(pt_visible=rec["nvis"], pt_found=rec["nfnd"])
+                self._count_visibility(rec["local_idx"], pt_idx)
                 close_counts = (t_close, u_close)
                 self._ref_matches = ref_tracked
             else:
@@ -839,7 +822,7 @@ class SlamSystem:
                 self._log_frame(timestamp, lost=True, frame_id=frame_id)
                 return None
 
-            if not (ok_motion and optimistic):      # else last_* hold this record already
+            if not ok_motion:       # the motion path's last_* are its dispatch's
                 self._advance(frame, pose, pt_idx)
             self.state = TrackState.OK
             # the step's Tcr is relative to the reference keyframe of the
@@ -858,23 +841,50 @@ class SlamSystem:
             return _host(pose) if pose_np is None else pose_np
 
     def _track_fused(self, raw_a, raw_b, timestamp: float):
-        """Steady-state tracked frame: one dispatch, then ``_commit_fused``'s
-        two host reads (more at a fallback or a keyframe)."""
+        """A steady-state tracked frame: commit the frames dispatched
+        ``pipeline_depth`` calls ago, dispatch this one against the
+        tracker's uncommitted device state and chain the tracker on its
+        outputs.  At depth 0 (synchronous mode) the frame is committed at
+        once and the call returns its host pose, or None for a lost frame:
+        one dispatch and ``_commit_fused``'s two host reads (more at a
+        fallback or a keyframe).  Deeper, the call returns the pose as a
+        device tensor, and a loss shows up to ``depth`` frames late; the
+        frames in flight and this one then go through the decomposed path."""
+        while self._inflight and len(self._inflight) >= self.pipeline_depth:
+            self._commit_fused(self._inflight.pop(0))
+            if self.state != TrackState.OK:
+                self.flush_pipeline()
+                with telemetry.timer("track.decomposed"):
+                    return self._track(self._build_frame(raw_a, raw_b), timestamp)
         rec = self._dispatch_fused(raw_a, raw_b, timestamp)
-        pose = self._commit_fused(rec, optimistic=False)
+        pose_dev = rec["poses_out"][0]
+        # the next dispatch chains on device values
+        self.velocity = pose_dev @ se3.inv(self.last_pose)
+        self.last_pose = pose_dev
+        self.last_frame = rec["frame"]
+        self.last_pt_idx = rec["pt2"]
+        if not self.pipeline_depth:
+            pose = self._commit_fused(rec)
+            if self.cooperative:
+                self._pump_mapping()
+            return pose
+        self._inflight.append(rec)
+        # one bounded mapping step in the shadow of this frame's device
+        # work, proportionally more when keyframes queue up
         if self.cooperative:
-            self._pump_mapping()
-        return pose
+            backlog = self._coop_backlog()
+            self._pump_mapping(1 if backlog <= 1 else 4 * backlog)
+        return pose_dev
 
     def flush_pipeline(self):
         """Commit every frame in flight (nothing in synchronous mode).  Once
-        an older frame turns out lost, the younger ones' optimistic results
-        are void: they go through the decomposed path instead, with their
-        own frame ids (their frames were kept)."""
+        an older frame turns out lost, the younger ones' results, dispatched
+        on its outputs, are void: they go through the decomposed path
+        instead, with their own frame ids (their frames were kept)."""
         while self._inflight:
             rec = self._inflight.pop(0)
             if self.state == TrackState.OK:
-                self._commit_fused(rec, optimistic=True)
+                self._commit_fused(rec)
             else:
                 saved = self.frame_id
                 self.frame_id = rec["frame_id"]
@@ -883,33 +893,6 @@ class SlamSystem:
                         self._track(rec["frame"], rec["timestamp"])
                 finally:
                     self.frame_id = saved
-
-    def _track_pipelined(self, raw_a, raw_b, timestamp: float):
-        """Optimistic pipelined tracking: commit the frames dispatched
-        ``pipeline_depth`` calls ago, dispatch this one against the
-        tracker's uncommitted device state, and return its pose as a device
-        tensor.  A loss shows up to ``depth`` frames late; the frames in
-        flight and this one then go through the decomposed path."""
-        while len(self._inflight) >= self.pipeline_depth:
-            self._commit_fused(self._inflight.pop(0), optimistic=True)
-            if self.state != TrackState.OK:
-                self.flush_pipeline()
-                with telemetry.timer("track.decomposed"):
-                    return self._track(self._build_frame(raw_a, raw_b), timestamp)
-        rec = self._dispatch_fused(raw_a, raw_b, timestamp)
-        pose_dev = rec["poses_out"][0]
-        # optimistic tracker state: the next dispatch chains on device values
-        self.velocity = pose_dev @ se3.inv(self.last_pose)
-        self.last_pose = pose_dev
-        self.last_frame = rec["frame"]
-        self.last_pt_idx = rec["pt2"]
-        self._inflight.append(rec)
-        # one bounded mapping step in the shadow of this frame's device
-        # work, proportionally more when keyframes queue up
-        if self.cooperative:
-            backlog = self._coop_backlog()
-            self._pump_mapping(1 if backlog <= 1 else 4 * backlog)
-        return pose_dev
 
     # ----------------------------------------------------------- sub-steps
     def _local_map_bar(self, frame_id: Optional[int] = None) -> int:
@@ -1018,17 +1001,18 @@ class SlamSystem:
         res = TK.match_local_points(frame, local, m.pt_desc, pt_idx, th=1.0,
                                     scale_factors=self.scale_factors)
         pose, pt_idx, n_inl = self._pose_opt_against_map(frame, pose, res.pt_idx)
-        # the counters feed MapPointCulling; in async mode the mapper owns
-        # the map and they wait for the next keyframe insertion
-        if self.mapper is None:
-            self.map = LM.update_visibility(self.map, local.idx, pt_idx)
-        else:
-            self._buffer_visibility(local.idx, pt_idx)
+        self._count_visibility(local.idx, pt_idx)
         return pose, pt_idx, n_inl
 
-    def _buffer_visibility(self, local_idx, pt_idx):
-        """Async mode: one frame's counters for ``_flush_pending_vis``; the
-        oldest go once 256 frames wait."""
+    def _count_visibility(self, local_idx, pt_idx):
+        """A tracked frame's IncreaseVisible / IncreaseFound counters
+        (MapPoint.cc:214-227), which feed MapPointCulling: into the live
+        map, or in async mode, where the mapper owns the map, buffered for
+        ``_flush_pending_vis`` at the next keyframe insertion (the oldest go
+        once 256 frames wait)."""
+        if self.mapper is None:
+            self.map = LM.update_visibility(self.map, local_idx, pt_idx)
+            return
         self._pending_vis.append((local_idx, pt_idx))
         if len(self._pending_vis) > 256:
             self._pending_vis.pop(0)

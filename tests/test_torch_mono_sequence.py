@@ -190,8 +190,8 @@ def test_mono_branches_of_the_facade():
     assert async_slam.mapper is None
     for kwargs in (dict(pipelined=True), dict(cooperative_mapping=True)):
         slam = TSlam(TCFG, device="cpu", **kwargs)
-        assert (slam.pipelined, slam.cooperative) == (kwargs.get("pipelined", False),
-                                                      kwargs.get("cooperative_mapping", False))
+        assert (slam.pipeline_depth, slam.cooperative) == (int(kwargs.get("pipelined", False)),
+                                                           kwargs.get("cooperative_mapping", False))
 
 
 INIT_STEPS = {"init.match", "init.two_view", "init.map", "init.ba"}

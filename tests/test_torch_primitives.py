@@ -227,7 +227,7 @@ def test_port_imports_no_jax():
                    "geometry.triangulation", "place.vocab", "place.keyframe_db",
                    "solvers.epnp", "geometry.sim3", "solvers.horn_sim3", "optim.pose_graph",
                    "backend.loop_closing", "io.checkpoint", "io.datasets", "io.viz",
-                   "scripts.run_dataset", "bench", "parallel.dist_ba", "parallel.multihost",
+                   "scripts.run_dataset", "parallel.dist_ba", "parallel.multihost",
                    "scripts.multihost_ba", "scripts.run_scale_demo", "scripts.bench_dist_ba",
                    "scripts.bench_pose_graph", "io.png", "scripts.make_fixture",
                    "scripts.run_synthetic", "utils.synthetic"):

@@ -7,7 +7,8 @@
   frames 0, 4, 6, 8 and 11, so triangulation, both fuse directions, three
   local BAs and the keyframe-culling evaluation all run.  Asserted: lost 0
   on both and ATE < 0.02 m on the port; n_kf and the keyframe frame ids
-  equal; n_pt within 1%; per-frame poses within 1 mm and 0.1 degree; both
+  equal; n_pt within 1%; the visibility and found counters equal; per-frame
+  poses within 1 mm and 0.1 degree; both
   descriptor searches of every mapped keyframe through
   ``cuda_hamming.hamming_best2``; the exports readable.
 - LOST: a blank frame after 6 tracked ones is lost, the next frame resets
@@ -170,6 +171,16 @@ def test_sequence_keyframes_and_points_match(sequence):
     assert abs(t.n_pt - j.n_pt) <= 0.01 * j.n_pt
     assert t.culled_chain.keys() == j.culled_chain.keys()
     assert t.stats["motion_tracks"] == j.stats["motion_tracks"]
+
+
+def test_sequence_visibility_counters_as_jax(sequence):
+    """The IncreaseVisible / IncreaseFound counters after the sequence equal:
+    the port's commit applies them to the map, JAX's fused step returns
+    them updated."""
+    _, out, _, _ = sequence
+    j, t = out["jax"][0], out["port"][0]
+    np.testing.assert_array_equal(t.map.pt_visible.numpy(), np.asarray(j.map.pt_visible))
+    np.testing.assert_array_equal(t.map.pt_found.numpy(), np.asarray(j.map.pt_found))
 
 
 def test_sequence_poses_within_1mm_and_0p1deg(sequence):
