@@ -10,7 +10,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    and power limit from nvidia-smi;
 2. build — compiles the kernels from refactored_orb_slam2_tpu_torch/csrc/
    (the Hamming matchers window_match.cu and masked_best2.cu, the pose-only
-   LM pose_lm.cu; sm_90a, one nvcc per source, started together) into the
+   LM pose_lm.cu, the DLT's null vector dlt_nullvec.cu; sm_90a, one nvcc
+   per source, started together) into the
    ignored build directory, timed as set-up;
 3. kernels — each kernel against its plain PyTorch version on the card,
    d1, i1 and d2 equal.  The window matcher at the JAX self-check shape
@@ -3794,7 +3795,8 @@ def _kernels(card: str) -> list:
         "replaces": "refactored_orb_slam2_tpu/ops/pallas_hamming.py:80",
         "launches": None,
         "max_abs_err": m_err,
-    }, **m["fuse"], other_shapes=[m[k] for k in m if k != "fuse"]), _pose_lm(card)]
+    }, **m["fuse"], other_shapes=[m[k] for k in m if k != "fuse"]), _pose_lm(card),
+        _dlt_nullvec(card)]
 
 
 # one pose-only LM edge in one normal-equation build of csrc/pose_lm.cu:
@@ -3876,6 +3878,76 @@ def _pose_lm(card: str) -> dict:
                 **rows[0], other_shapes=rows[1:])
 
 
+# one row of csrc/dlt_nullvec.cu: the 4x4 system built (16 products and
+# differences), one Jacobi sweep of 6 column pairs (3 dot products of 4 rows,
+# the rotation's 10, the rotation of A's and V's two columns, 48), the
+# columns' norms (32) and the division (3): the least any sweep count takes
+DLT_FLOPS_PER_ROW = 32 + 6 * (24 + 10 + 48) + 32 + 3
+
+
+def _dlt_case(n: int, seed: int) -> list:
+    """``n`` correspondences of points 3-8 m ahead seen by the identity
+    camera and one 0.3 m to the side, 1e-3 of noise (the CPU test's case)."""
+    from refactored_orb_slam2_tpu_torch.geometry import se3
+
+    rng = np.random.default_rng(seed)
+    pw = rng.uniform([-2, -2, 3], [2, 2, 8], (n, 3)).astype(np.float32)
+    T2 = se3.exp(torch.tensor([0.3, 0.05, 0, 0.01, 0.05, 0], dtype=torch.float32)).numpy()
+    proj = lambda T: (pw @ T[:3, :3].T + T[:3, 3])[:, :2] / (pw @ T[:3, :3].T + T[:3, 3])[:, 2:]
+    x1 = proj(np.eye(4, dtype=np.float32)) + rng.normal(0, 1e-3, (n, 2))
+    x2 = proj(T2) + rng.normal(0, 1e-3, (n, 2))
+    return [_dev(a.astype(np.float32)) for a in (np.eye(4)[:3], T2[:3], x1, x2)]
+
+
+def _dlt_nullvec(card: str) -> dict:
+    """Phase 3 for the DLT kernel: ``dlt_nullvec`` on the card against its
+    plain version (``triangulate_dlt``, ``torch.linalg.svd``) at 200, 1000
+    and 1200 rows (local mapping launches it at the features of a keyframe:
+    1000 in TUM, 1200 in EuRoC), then at 1000 and 1200 its device-side
+    time, the same at one row, its bound, what a caller waits and the plain
+    version's time.  Returns the kernel JSON row."""
+    from refactored_orb_slam2_tpu_torch.geometry.triangulation import triangulate_dlt
+    from refactored_orb_slam2_tpu_torch.ops import cuda_hamming
+
+    err = 0.0
+    for n in (200, 1000, 1200):
+        args = _dlt_case(n, seed=n)
+        got, ref = cuda_hamming.dlt_nullvec(*args), triangulate_dlt(*args)
+        torch.cuda.synchronize()
+        n_err = float((got - ref).abs().max())
+        if not n_err < 1e-4:
+            raise AssertionError(f"dlt_nullvec at {n} rows: {n_err} from the plain version")
+        err = max(err, n_err)
+    print(f"DLT kernel: 200, 1000 and 1200 rows within 1e-4 of the plain version "
+          f"(largest difference {err:.3g} m)")
+    one = _dlt_case(1, seed=1)
+    floor_ms = _device_ms(lambda: cuda_hamming.dlt_nullvec(*one), "dlt_nullvec_kernel")
+    rows = []
+    for n in (1000, 1200):
+        args = _dlt_case(n, seed=n)
+        kern = lambda: cuda_hamming.dlt_nullvec(*args)
+        plain = lambda: triangulate_dlt(*args)
+        device_ms = _device_ms(kern, "dlt_nullvec_kernel")
+        ms, plain_ms = _interleaved_ms(kern, plain)
+        n_bytes = 2 * 12 * 4 + n * (16 + 12)
+        ops = n * DLT_FLOPS_PER_ROW
+        t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        print(f"kernel time, dlt_nullvec at {n} rows: device-side {device_ms:.5f} ms (median of "
+              f"20 launches in a torch.profiler trace), at 1 row {floor_ms:.5f} ms, bound "
+              f"{bound_ms:.6f} ms by {by} ({n_bytes} B, {ops} FLOP), share of bound "
+              f"{bound_ms / device_ms:.4f}; a caller waits {ms:.4f} ms, plain version "
+              f"{plain_ms:.4f} ms (medians of 20, CUDA events around the call; {card})")
+        rows.append({"shape": f"{n} rows", "ms": ms, "plain_ms": plain_ms,
+                     "device_ms": device_ms, "floor_ms": floor_ms, "bound_ms": bound_ms,
+                     "bound_by": by, "library_ms": None})
+    return dict({"name": "dlt_nullvec", "route": "cuda",
+                 "source": "refactored_orb_slam2_tpu_torch/csrc/dlt_nullvec.cu",
+                 "replaces": None, "launches": None, "max_abs_err": err},
+                **rows[0], other_shapes=rows[1:])
+
+
 def _launch_rows(kernels: list, by_path: dict, reloc: list, rescue: dict | None = None) -> None:
     """Each kernel row's launches per path and in all, and phase 9's
     rescue-search comparisons in its error; raises if a kernel was not
@@ -3886,7 +3958,8 @@ def _launch_rows(kernels: list, by_path: dict, reloc: list, rescue: dict | None 
     # relocalization needs one only for a rescue round or a new keyframe; the
     # sharded BA (phase 14) has no Hamming kernel, as in the JAX package
     exempt = {("localization", "hamming_best2"), ("relocalization", "hamming_best2"),
-              ("dist", "hamming_best2"), ("dist", "window_match"), ("dist", "pose_lm")}
+              ("dist", "hamming_best2"), ("dist", "window_match"), ("dist", "pose_lm"),
+              ("localization", "dlt_nullvec"), ("dist", "dlt_nullvec")}
     for row in kernels:
         row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())

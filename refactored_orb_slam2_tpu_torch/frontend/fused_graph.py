@@ -26,6 +26,15 @@ tracked frame's replays (``slambench``'s probes do) sees no other graph.
 ``SlamSystem._ba_chunk`` wraps the local BA's LM chunk in a ``StepGraph``
 the same way.
 
+A step may instead be a generator function that yields the arguments of an
+eager call (``call``) and is sent its result: local mapping's triangulation
+and fusion steps yield at their masked best-2, so that the matcher stays a
+call that whatever wraps ``cuda_hamming.hamming_best2`` sees, with its own
+inputs and output.  Each stretch between yields is then one CUDA graph, all
+in one memory pool (a stretch reads what the one before it left there),
+replayed in order with the eager call between them; the call's results are
+copied into the next stretch's input buffers.
+
 A kernel wrapper counts a launch when it enqueues the kernel, which inside
 a capture happens once, without a launch.  So the counts the capture added
 on its own thread are taken back and kept per graph, and every replay adds
@@ -147,9 +156,11 @@ def _is_chain(graph: int, n_nodes: int) -> bool:
 
 
 def _map_tensors(fn, x):
-    """``fn`` on every tensor of a nest of tuples and dataclasses."""
+    """``fn`` on every tensor of a nest of tuples, dicts and dataclasses."""
     if isinstance(x, torch.Tensor):
         return fn(x)
+    if isinstance(x, dict):
+        return {k: _map_tensors(fn, v) for k, v in x.items()}
     if dataclasses.is_dataclass(x):
         return dataclasses.replace(x, **{f.name: _map_tensors(fn, getattr(x, f.name))
                                          for f in dataclasses.fields(x)})
@@ -160,23 +171,40 @@ def _map_tensors(fn, x):
 
 
 def flat_tensors(x) -> list:
-    """Every tensor of a nest of tuples and dataclasses, in order."""
+    """Every tensor of a nest of tuples, dicts and dataclasses, in order."""
     out = []
     _map_tensors(out.append, x)
     return out
 
 
+def drive(gen, call):
+    """Run the generator ``gen`` to its end, sending it ``call(*args)``
+    for each ``args`` it yields; returns what it returns."""
+    out = None
+    while True:
+        try:
+            args = gen.send(out)
+        except StopIteration as stop:
+            return stop.value
+        out = call(*args)
+
+
 class StepGraph:
     """One CUDA graph of ``step(**inputs)`` (keyword tensors or None, fixed
-    shapes).  ``captures`` and ``replays`` count what it did; ``launches``
-    holds the kernel launches of one replay; ``stages``, after a capture:
-    ``marks``, each ``stage``'s (name, work nodes captured by its end) in
-    order, ``nodes``, the graph's work nodes, and ``chain``, whether the
-    graph is one chain (None where the driver could not be asked)."""
+    shapes), or, where ``step`` is a generator function, one graph for each
+    stretch between its yields, with ``call`` made eagerly at each yield
+    (module notes).  ``captures`` and ``replays`` count what it did;
+    ``launches`` holds the kernel launches of one replay (``call``'s
+    excepted: it counts its own); ``stages``, after a capture: ``marks``,
+    each ``stage``'s (name, work nodes captured by its end) in order,
+    ``nodes``, the graphs' work nodes, and ``chain``, whether each graph is
+    one chain (None where libcuda could not be asked)."""
 
-    def __init__(self, step):
+    def __init__(self, step, call=None):
         self.step = step
+        self.call = call
         self.graph = None
+        self.holes: list = []        # per yield: (its arguments, result buffers, next graph)
         self.static: dict = {}
         self.copied: dict = {}       # name -> (tensor last copied, its _version)
         self.outputs = None
@@ -201,6 +229,17 @@ class StepGraph:
             buf.copy_(t)
             self.copied[name] = (t, t._version)
 
+    def _eager(self, inputs: dict, results: list):
+        """The step run eagerly, ``call`` made at each yield (its results
+        appended to ``results``)."""
+        if self.call is None:
+            return self.step(**inputs)
+
+        def call(*args):
+            results.append(self.call(*args))
+            return results[-1]
+        return drive(self.step(**inputs), call)
+
     def _capture(self, inputs: dict):
         """Warm-up (this frame's result) and capture, on one side stream."""
         self.static = {name: (None if t is None else t.clone()) for name, t in inputs.items()}
@@ -208,15 +247,17 @@ class StepGraph:
         main = torch.cuda.current_stream()
         side = torch.cuda.Stream()
         side.wait_stream(main)
+        hole_results: list = []
         with torch.cuda.stream(side):
-            result = self.step(**self.static)
+            result = self._eager(self.static, hole_results)
+            # the result buffers of each yield, shaped as the warm-up's
+            hole_bufs = [_map_tensors(torch.empty_like, r) for r in hole_results]
         main.wait_stream(side)
         # the warm-up's outputs were made on the side stream and live on
         # the main one
         _map_tensors(lambda t: t.record_stream(main), result)
 
         counted = cuda_hamming.thread_launches()
-        graph = torch.cuda.CUDAGraph()
         # a dead graph (another system's, in a reference cycle) that the
         # collector frees during the capture releases its memory there,
         # which invalidates the capture: collect first, not during it
@@ -226,13 +267,10 @@ class StepGraph:
         self.stages = dict(marks=[], nodes=None, chain=None)
         self._seen, self._work = set(), 0
         try:
-            with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
-                _capturing.graph = self
-                try:
-                    self.outputs = self.step(**self.static)
-                finally:
-                    _capturing.graph = None
-                self._mark(None)
+            if self.call is None:
+                self.graph = self._capture_stretch(side, None, lambda: self.step(**self.static))
+            else:
+                self._capture_stretches(side, hole_bufs)
         finally:
             if collecting:
                 gc.enable()
@@ -242,13 +280,49 @@ class StepGraph:
                          if n != counted[name]}
         for name, n in self.launches.items():
             cuda_hamming.count(name, -n)
-        self.graph = graph
         self.captures += 1
         return result
 
+    def _capture_stretch(self, side, pool, fn):
+        """One graph of ``fn()`` captured on ``side`` (into ``pool``, or a
+        private pool with None); ``fn``'s result becomes ``outputs``."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=pool, stream=side, capture_error_mode="thread_local"):
+            _capturing.graph = self
+            try:
+                self.outputs = fn()
+            finally:
+                _capturing.graph = None
+            self._mark(None)
+        return graph
+
+    def _capture_stretches(self, side, hole_bufs) -> None:
+        """A generator step's graphs, one a stretch, in one pool: each yield's
+        arguments are kept, and its result buffers (``hole_bufs``) are what
+        the next stretch is sent."""
+        pool = torch.cuda.graph_pool_handle()
+        gen = self.step(**self.static)
+        graphs, yielded = [], []
+
+        def stretch(sent):
+            try:
+                yielded.append(gen.send(sent))
+            except StopIteration as stop:
+                return stop.value
+            return None
+
+        graphs.append(self._capture_stretch(side, pool, lambda: stretch(None)))
+        for bufs in hole_bufs:
+            graphs.append(self._capture_stretch(side, pool, lambda: stretch(bufs)))
+        if len(yielded) != len(hole_bufs):
+            raise RuntimeError(f"the step yielded {len(yielded)} times under capture, "
+                               f"{len(hole_bufs)} times at its warm-up")
+        self.graph = graphs[0]
+        self.holes = list(zip(yielded, hole_bufs, graphs[1:]))
+
     def _mark(self, name) -> None:
         """The capturing graph's work nodes so far: at the end of stage
-        ``name``, or with None at the capture's end, the total and the chain
+        ``name``, or with None at a graph's end, the total and the chain
         check.  A driver call that fails warns and ends the counting for
         this capture (``chain`` stays None)."""
         if self._seen is None:
@@ -260,7 +334,8 @@ class StepGraph:
             self._seen.update(new)
             self._work += sum(_node_type(n) in _WORK_NODES for n in new)
             if name is None:
-                self.stages.update(nodes=self._work, chain=_is_chain(graph, len(nodes)))
+                chain = _is_chain(graph, len(nodes)) and self.stages["chain"] is not False
+                self.stages.update(nodes=self._work, chain=chain)
             else:
                 self.stages["marks"].append((name, self._work))
         except (OSError, AttributeError, RuntimeError) as e:
@@ -274,6 +349,10 @@ class StepGraph:
             return self._capture(inputs)
         self._load(inputs)
         self.graph.replay()
+        for args, bufs, graph in self.holes:
+            for buf, out in zip(flat_tensors(bufs), flat_tensors(self.call(*args))):
+                buf.copy_(out)
+            graph.replay()
         self.replays += 1
         for name, n in self.launches.items():
             cuda_hamming.count(name, n)

@@ -1,6 +1,7 @@
 """The port's hand-written CUDA kernels, their loader and their plain
-versions: the Hamming best-2 matchers, and the pose-only LM that the
-tracked frame runs twice.
+versions: the Hamming best-2 matchers, the pose-only LM that the tracked
+frame runs twice, and the DLT's null vector of local mapping's
+triangulation.
 
 - ``window_match`` replaces ``refactored_orb_slam2_tpu/ops/pallas_hamming.py::
   window_match_pallas`` (kernel body ``_match_kernel``): per query row, the
@@ -21,6 +22,13 @@ tracked frame runs twice.
   PyTorch kernels.  It is bound by latency: 49 normal-equation builds and
   40 damped 6x6 solves in one chain.  ``optimize_pose`` launches it on
   CUDA tensors.
+- ``dlt_nullvec`` replaces no Pallas kernel either: it triangulates every
+  correspondence of a keyframe pair by the smallest right singular vector
+  of its 4x4 DLT system, one thread a correspondence, by one-sided Jacobi
+  in float32 (``csrc/dlt_nullvec.cu``), where the plain version
+  (``geometry/triangulation.py::triangulate_dlt``) calls
+  ``torch.linalg.svd``, which synchronizes with the host and so cannot be
+  captured in a CUDA graph.  Local mapping launches it on CUDA tensors.
 
 Both matchers give each query row one warp with the lanes across columns,
 gather the row's candidates into a queue so that all 32 lanes run their
@@ -50,6 +58,7 @@ from pathlib import Path
 
 import torch
 
+from ..geometry.triangulation import triangulate_dlt
 from . import matching as M
 from .descriptors import hamming
 
@@ -58,6 +67,7 @@ SOURCES = {
     "window_match": _PKG / "csrc" / "window_match.cu",
     "hamming_best2": _PKG / "csrc" / "masked_best2.cu",
     "pose_lm": _PKG / "csrc" / "pose_lm.cu",
+    "dlt_nullvec": _PKG / "csrc" / "dlt_nullvec.cu",
 }
 HEADERS = (_PKG / "csrc" / "best2_merge.cuh",)     # the matchers' shared header
 BUILD_DIR = _PKG / "build"
@@ -149,6 +159,7 @@ _ARGTYPES = {
     "pose_lm": ("pose_lm_launch",
                 [ctypes.c_void_p] * 10 + [ctypes.c_int] + [ctypes.c_float] * 5
                 + [ctypes.c_void_p]),
+    "dlt_nullvec": ("dlt_nullvec_launch", [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]),
 }
 
 
@@ -298,4 +309,26 @@ def pose_lm(cam, Tcw0, points_w, obs, inv_sigma2, valid, is_stereo):
            torch.empty(n, dtype=torch.float32, device=device))
     _call("pose_lm", device, *(t.data_ptr() for t in args + out), n,
           cam.fx, cam.fy, cam.cx, cam.cy, cam.bf)
+    return out
+
+
+_DLT_SPEC = (
+    ("P1", torch.float32, (3, 4), ""), ("P2", torch.float32, (3, 4), ""),
+    ("x1", torch.float32, (2,), "n"), ("x2", torch.float32, (2,), "n"),
+)
+
+
+def dlt_nullvec(P1, P2, x1, x2):
+    """Two-view DLT triangulation: P1 and P2 (3, 4) float32 projections, x1
+    and x2 (N, 2) float32 normalized coordinates of N correspondences.
+    Returns (N, 3) float32 points, as ``triangulate_dlt`` (the plain
+    version, which CPU tensors take): the null vector of each 4x4 DLT
+    system, dehomogenised with the same guard on ``|w| < 1e-12``."""
+    n = x1.shape[0] if x1.dim() else -1
+    device = _check(_DLT_SPEC, (P1, P2, x1, x2), {"n": n})
+    if device.type == "cpu":
+        return triangulate_dlt(P1, P2, x1, x2)
+    args = tuple(t.contiguous() for t in (P1, P2, x1, x2))
+    out = torch.empty((n, 3), dtype=torch.float32, device=device)
+    _call("dlt_nullvec", device, *(t.data_ptr() for t in args), out.data_ptr(), n)
     return out

@@ -85,10 +85,23 @@ def nn_match_desc(
     argmin over the whole matrix, so mutual matchers stay on ``nn_match``."""
     from . import cuda_hamming      # which imports this module
 
+    d1, i1, d2 = cuda_hamming.hamming_best2(desc_a, desc_b,
+                                            best2_mask(row_valid, col_valid, extra_mask))
+    return best2_result(d1, i1, d2, row_valid, max_dist=max_dist, ratio=ratio)
+
+
+def best2_mask(row_valid: torch.Tensor, col_valid: torch.Tensor,
+               extra_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The (N1, N2) mask ``nn_match_desc`` hands the masked best-2."""
     mask = row_valid[:, None] & col_valid[None, :]
     if extra_mask is not None:
         mask = mask & extra_mask
-    d1, i1, d2 = cuda_hamming.hamming_best2(desc_a, desc_b, mask)
+    return mask
+
+
+def best2_result(d1, i1, d2, row_valid: torch.Tensor, *, max_dist: int = 50,
+                 ratio: float = 1.0) -> MatchResult:
+    """``nn_match_desc``'s matches from the masked best-2's (d1, i1, d2)."""
     ok = _gates(d1, d2, row_valid, max_dist, ratio)
     return MatchResult(idx=torch.where(ok, i1, -1),
                        dist=torch.where(ok, d1, BIG), mask=ok)

@@ -674,10 +674,11 @@ def test_fused_graph_captured_while_the_mapping_worker_is_busy(cuda):
 BA_COUNTERS = ("mapping.ba_eager_chunks", "mapping.ba_graph_replays")
 
 
-def _mapped_room(min_kfs=4):
+def _mapped_room(min_kfs=4, snapshots=None):
     """A system on the card that tracked and mapped the 320x240 room frames
     (synchronous mapping, loop closing off) until it held ``min_kfs``
-    keyframes."""
+    keyframes; ``snapshots``, where given, gets (keyframe, map, n_pt) as
+    each keyframe's mapping starts."""
     cfg = SystemConfig(
         sensor="rgbd",
         camera=CameraConfig(fx=258.65, fy=258.25, cx=159.3, cy=127.65, bf=20.0,
@@ -688,6 +689,13 @@ def _mapped_room(min_kfs=4):
     world = W.scene_room(seed=11)
     slam = SlamSystem(cfg, device="cuda")
     slam.loop_closing_enabled = False
+    if snapshots is not None:
+        core = slam._mapping_core
+
+        def snapped(kf_slot):
+            snapshots.append((kf_slot, slam.map, slam.n_pt))
+            core(kf_slot)
+        slam._mapping_core = snapped
     rng = np.random.default_rng(0)
     for i, T in enumerate(W.traj_room_orbit(160, seed=5, span=0.45 * np.pi)):
         img, depth = world.render_device(T, slam.cam, want_depth=True, noise=2.0, rng=rng,
@@ -839,6 +847,281 @@ def test_local_ba_chunk_eager_where_no_graph_applies(cuda):
     assert len(calls) == 1 and all(torch.equal(a, b) for a, b in zip(got, want))
     assert slam._ba_graphs == {}
     assert _counted(before) == {"mapping.ba_eager_chunks": 4, "mapping.ba_graph_replays": 0}
+
+
+# ------------------------------------- triangulation and fusion as graph replays
+TRI_FUSE_COUNTERS = ("mapping.tri_fuse_eager_calls", "mapping.tri_fuse_graph_replays")
+
+
+def _tri_fuse_counts():
+    from refactored_orb_slam2_tpu_torch.utils import telemetry
+
+    return {name: telemetry.get(name) for name in TRI_FUSE_COUNTERS}
+
+
+def _map_keyframe(slam, m, kf, run, pt_base):
+    """Keyframe ``kf`` of map ``m`` triangulated against its covisible
+    neighbours from ``pt_base`` on, then fused in both directions, each step
+    through ``run``: (state after each step, triangulated count)."""
+    from refactored_orb_slam2_tpu_torch.backend import local_mapping as LM
+
+    orb = slam.cfg.orb
+    kw = dict(scale_factor=orb.scale_factor, n_levels=orb.n_levels)
+    tri, fuse, *_ = LM.mapping_work_sets(m, kf, 0, nn=10, t_cap=32, n_neighbors=10)
+    s1, n_new = LM.triangulate_with_neighbors(m, kf, tri.tolist(), slam.cam, pt_base, max_new=64,
+                                              min_baseline_ratio=0.005, run=run, **kw)
+    s2 = LM.fuse_into_keyframes(s1, fuse.tolist(), slam.cam, budget=1024,
+                                cand_idx=s1.kf_point_idx[kf], run=run, **kw)
+    s3 = run(LM.fuse_targets_gen, s2, kf, fuse, slam.cam, budget=2048, **kw)
+    return (s1, s2, s3), n_new
+
+
+def _maps_equal(a, b) -> bool:
+    return all(torch.equal(getattr(a, f.name), getattr(b, f.name))
+               for f in dataclasses.fields(a))
+
+
+def test_mapping_graphs_captured_at_the_first_mapped_keyframe(cuda):
+    """The first mapped keyframe captures the three graphs (a neighbour's
+    triangulation, a direction-1 and a direction-2 fuse); every later call
+    is a replay."""
+    before = _tri_fuse_counts()
+    src = _mapped_room()
+    counted = {k: n - before[k] for k, n in _tri_fuse_counts().items()}
+    graphs = list(src._tri_fuse_graphs.values())
+    assert len(graphs) == 3 and all(g.captures == 1 for g in graphs)
+    assert counted["mapping.tri_fuse_eager_calls"] == 3
+    assert counted["mapping.tri_fuse_graph_replays"] == sum(g.replays for g in graphs) >= 6
+    src.shutdown()
+
+
+def test_triangulation_and_fusion_replay_equal_eager(cuda):
+    """On maps the card built, as keyframes' mappings started: triangulation
+    over a keyframe's neighbours and both fuse directions, replayed, are
+    ``torch.equal`` to the same steps run eagerly with the same kernels: for
+    the keyframe that triangulates most (the calls that capture), for the
+    next (inputs copied into the same graphs), and for the first from 64
+    slots before the bank's end, where the stop drops every neighbour after
+    the first."""
+    from refactored_orb_slam2_tpu_torch.backend import local_mapping as LM
+
+    snaps = []
+    src = _mapped_room(min_kfs=6, snapshots=snaps)
+    slam = SlamSystem(src.cfg, device=cuda)          # no graph yet
+    orb = src.cfg.orb
+    made = [int(LM.triangulate_with_neighbors(
+        m, kf, LM.mapping_work_sets(m, kf, 0, nn=10, t_cap=32, n_neighbors=10)[0].tolist(),
+        slam.cam, n_pt, max_new=64, scale_factor=orb.scale_factor, n_levels=orb.n_levels,
+        min_baseline_ratio=0.005)[1]) for kf, m, n_pt in snaps]
+    first, second = np.argsort(made)[::-1][:2]
+    kf, m, n_pt = snaps[first]
+    P = m.pt_pos.shape[0]
+    tri = LM.mapping_work_sets(m, kf, 0, nn=10, t_cap=32, n_neighbors=10)[0]
+    assert made[first] > 0 and int((tri >= 0).sum()) >= 2
+    for kf, m, base in (snaps[first], snaps[second], snaps[first][:2] + (P - 64,)):
+        got, n_got = _map_keyframe(slam, m, kf, slam._mapping_run, base)
+        want, n_want = _map_keyframe(slam, m, kf, LM.run_eager, base)
+        assert torch.equal(n_got, n_want)
+        for step, (a, b) in enumerate(zip(got, want)):
+            assert _maps_equal(a, b), (kf, base, step)
+    assert 0 < int(n_want) <= 64
+    graphs = list(slam._tri_fuse_graphs.values())
+    assert len(graphs) == 3 and all(g.captures == 1 and g.replays >= 2 for g in graphs)
+    src.shutdown()
+
+
+def test_mapping_steps_eager_where_no_graph_applies(cuda):
+    """A replaced step and a system on the CPU run eagerly, equal to the
+    stock step, and capture nothing."""
+    from refactored_orb_slam2_tpu_torch.backend import local_mapping as LM
+
+    src = _mapped_room()
+    kf = src.n_kf - 1
+    want, _ = _map_keyframe(src, src.map, kf, LM.run_eager, src.n_pt)
+    stock = {name: getattr(LM, name) for name in
+             ("triangulate_neighbor_gen", "fuse_gen", "fuse_targets_gen")}
+    slam = SlamSystem(src.cfg, device=cuda)
+    before = _tri_fuse_counts()
+    try:
+        for name, fn in stock.items():
+            setattr(LM, name, lambda *a, _fn=fn, **k: _fn(*a, **k))
+        got, _ = _map_keyframe(slam, src.map, kf, slam._mapping_run, src.n_pt)
+    finally:
+        for name, fn in stock.items():
+            setattr(LM, name, fn)
+    assert all(_maps_equal(a, b) for a, b in zip(got, want))
+    assert slam._tri_fuse_graphs == {}
+    counted = {k: n - before[k] for k, n in _tri_fuse_counts().items()}
+    assert counted["mapping.tri_fuse_graph_replays"] == 0
+    assert counted["mapping.tri_fuse_eager_calls"] > 3
+    cpu = SlamSystem(src.cfg, device="cpu")
+    m_cpu = dataclasses.replace(src.map, **{f.name: getattr(src.map, f.name).cpu()
+                                            for f in dataclasses.fields(src.map)})
+    _map_keyframe(cpu, m_cpu, kf, cpu._mapping_run, src.n_pt)
+    assert cpu._tri_fuse_graphs == {}
+    src.shutdown()
+
+
+def test_async_mapping_graphs_captured_before_the_workers_start(cuda):
+    """In async mode the triangulation, fusion and local BA graphs are
+    captured on the mapping worker's stream when the system is made, before
+    its threads start; the worker only replays them."""
+    cfg = SystemConfig(
+        sensor="rgbd",
+        camera=CameraConfig(fx=258.65, fy=258.25, cx=159.3, cy=127.65, bf=20.0,
+                            width=320, height=240),
+        orb=ORBConfig(n_features=500, n_levels=4),
+        map=MapConfig(max_keyframes=128, max_points=32768, max_obs_per_point=8),
+    )
+    slam = SlamSystem(cfg, device="cuda", async_mapping=True)
+    graphs = dict(slam._tri_fuse_graphs)
+    stream = slam._streams["mapping"].cuda_stream
+    assert len(graphs) == 3 and all(key[0] == stream and g.captures == 1
+                                    for key, g in graphs.items())
+    ba_graphs = dict(slam._ba_graphs)
+    assert len(ba_graphs) == 1 and all(key[0] == stream for key in ba_graphs)
+    before = _tri_fuse_counts()
+    world = W.scene_room(seed=11)
+    rng = np.random.default_rng(0)
+    for i, T in enumerate(W.traj_room_orbit(160, seed=5, span=0.45 * np.pi)[:100]):
+        img, depth = world.render_device(T, slam.cam, want_depth=True, noise=2.0, rng=rng,
+                                         device="cuda")
+        assert slam.track_rgbd_device(img, depth, i / 30.0) is not None, i
+    assert slam.wait_mapping_idle(timeout=300)
+    slam.shutdown()
+    assert slam.n_kf >= 3 and slam._tri_fuse_graphs == graphs and slam._ba_graphs == ba_graphs
+    assert all(g.captures == 1 and g.replays > 0
+               for g in list(graphs.values()) + list(ba_graphs.values()))
+    counted = {k: n - before[k] for k, n in _tri_fuse_counts().items()}
+    assert counted["mapping.tri_fuse_eager_calls"] == 0
+    assert counted["mapping.tri_fuse_graph_replays"] == sum(g.replays for g in graphs.values())
+
+
+def _dlt_case(n, seed, device):
+    """``n`` correspondences of points 3-8 m ahead, seen by the identity
+    camera and one 0.3 m to the side, with 1e-3 of noise (as
+    ``tests/test_torch_mapping.py::test_triangulate_dlt_within_1e4``)."""
+    from refactored_orb_slam2_tpu_torch.geometry import se3
+
+    rng = np.random.default_rng(seed)
+    pw = rng.uniform([-2, -2, 3], [2, 2, 8], (n, 3)).astype(np.float32)
+    T1 = np.eye(4, dtype=np.float32)
+    T2 = se3.exp(torch.tensor([0.3, 0.05, 0, 0.01, 0.05, 0], dtype=torch.float32)).numpy()
+    proj = lambda T: (pw @ T[:3, :3].T + T[:3, 3])[:, :2] / (pw @ T[:3, :3].T + T[:3, 3])[:, 2:]
+    x1 = (proj(T1) + rng.normal(0, 1e-3, (n, 2))).astype(np.float32)
+    x2 = (proj(T2) + rng.normal(0, 1e-3, (n, 2))).astype(np.float32)
+    return [torch.from_numpy(a.copy()).to(device) for a in (T1[:3], T2[:3], x1, x2)]
+
+
+@pytest.mark.parametrize("n", [200, 1000, 1200])
+def test_dlt_nullvec_kernel_within_1e4_of_svd(cuda, n):
+    """The DLT kernel against the plain version (``torch.linalg.svd`` on
+    the card), at the CPU test's atol; one launch a call."""
+    from refactored_orb_slam2_tpu_torch.geometry.triangulation import triangulate_dlt
+
+    args = _dlt_case(n, seed=2 + n, device=cuda)
+    before = cuda_hamming.launches["dlt_nullvec"]
+    got = cuda_hamming.dlt_nullvec(*args)
+    want = triangulate_dlt(*args)
+    assert cuda_hamming.launches["dlt_nullvec"] == before + 1
+    assert got.shape == (n, 3) and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) < 1e-4
+
+
+def _gate_margins(p3d, Ta, Tb, xa, xb_m, oct_a, oct_bm, cam, scale_factor, n_levels,
+                  min_baseline_ratio):
+    """Each of ``LM.triangulation_gates``' thresholds, as the row's signed
+    distance from it relative to the threshold's scale (positive: passes)."""
+    from refactored_orb_slam2_tpu_torch.geometry import se3
+
+    sf = scale_factor ** torch.arange(n_levels, dtype=torch.float32, device=p3d.device)
+    Ca, Cb = se3.translation(se3.inv(Ta)), se3.translation(se3.inv(Tb))
+    pca, pcb = se3.transform(Ta, p3d), se3.transform(Tb, p3d)
+    za, zb = pca[:, 2], pcb[:, 2]
+    ra, rb = p3d - Ca, p3d - Cb
+    cosp = (ra * rb).sum(1) / (ra.norm(dim=1) * rb.norm(dim=1) + 1e-12)
+    chi = lambda pc, z, x, o: (((pc[:, :2] / z[:, None] - x) * cam.fx) ** 2).sum(1) / sf[o] ** 2
+    ratio_dist = ra.norm(dim=1) / rb.norm(dim=1).clamp(min=1e-9)
+    ratio_oct = sf[oct_a] / sf[oct_bm]
+    limit = min_baseline_ratio * torch.minimum(za, zb).clamp(min=1e-6)
+    return dict(depth_a=(za - 1e-3) / 1e-3, depth_b=(zb - 1e-3) / 1e-3,
+                parallax=(0.9998 - cosp) / 0.9998,
+                chi2_a=(5.991 - chi(pca, za, xa, oct_a)) / 5.991,
+                chi2_b=(5.991 - chi(pcb, zb, xb_m, oct_bm)) / 5.991,
+                scale_high=(ratio_oct * 1.5 * scale_factor - ratio_dist) / ratio_oct,
+                scale_low=(ratio_dist * 1.5 * scale_factor - ratio_oct) / ratio_oct,
+                baseline=((Cb - Ca).norm() - limit) / limit)
+
+
+def _gate_flips(slam, frames, feed, max_calls):
+    """Feed ``frames`` to ``slam`` (its triangulation eager), all of them or
+    until ``max_calls`` neighbour calls were made; at each, the gates on the
+    kernel's points against the gates on the plain version's.  Returns the
+    calls and the flipped rows (call, row, gate margins)."""
+    from refactored_orb_slam2_tpu_torch.backend import local_mapping as LM
+    from refactored_orb_slam2_tpu_torch.geometry.triangulation import triangulate_dlt
+
+    gates, gen = LM.triangulation_gates, LM.triangulate_neighbor_gen
+    calls, flips = [], []
+
+    def compared(matched, p3d, Ta, Tb, xa, xb_m, oct_a, oct_bm, cam, **kw):
+        good, chi = gates(matched, p3d, Ta, Tb, xa, xb_m, oct_a, oct_bm, cam, **kw)
+        plain = triangulate_dlt(Ta[:3], Tb[:3], xa, xb_m)
+        good_plain, _ = gates(matched, plain, Ta, Tb, xa, xb_m, oct_a, oct_bm, cam, **kw)
+        calls.append(int(good.sum()))
+        rows = torch.nonzero(good != good_plain).flatten().tolist()
+        if rows:
+            margins = _gate_margins(plain, Ta, Tb, xa, xb_m, oct_a, oct_bm, cam, **kw)
+            flips.extend((len(calls) - 1, r, {k: float(v[r]) for k, v in margins.items()})
+                         for r in rows)
+        return good, chi
+
+    LM.triangulation_gates = compared
+    # a replaced step runs eagerly, so that every call goes through ``compared``
+    LM.triangulate_neighbor_gen = lambda *a, **k: gen(*a, **k)
+    try:
+        for i, frame in enumerate(frames):
+            feed(*frame, i / 30.0)
+            if max_calls is not None and len(calls) >= max_calls:
+                break
+    finally:
+        LM.triangulation_gates, LM.triangulate_neighbor_gen = gates, gen
+    return calls, flips
+
+
+def test_dlt_kernel_gates_equal_svd_on_mapped_keyframes(cuda):
+    """The triangulation's ``good`` mask with the kernel's points equals the
+    mask with ``torch.linalg.svd``'s on every neighbour call of the room
+    frames and on 200 calls of the desk pass (the benchmark's RGB-D cell:
+    TUM3 at 640x480, 1000 features); a row that flips lies within 1e-3 of
+    a gate (printed, with its gate)."""
+    from refactored_orb_slam2_tpu_torch.utils.presets import get_preset
+
+    world = W.scene_room(seed=11)
+    room_cfg = SystemConfig(
+        sensor="rgbd",
+        camera=CameraConfig(fx=258.65, fy=258.25, cx=159.3, cy=127.65, bf=20.0,
+                            width=320, height=240),
+        orb=ORBConfig(n_features=500, n_levels=4),
+        map=MapConfig(max_keyframes=24, max_points=4096, max_obs_per_point=8),
+    )
+    for name, cfg, traj, want in (
+            ("room", room_cfg, W.traj_room_orbit(160, seed=5, span=0.45 * np.pi), None),
+            ("desk", get_preset("rgbd_tum3"), W.traj_room_orbit(600, seed=11), 200)):
+        slam = SlamSystem(cfg, device=cuda)
+        slam.loop_closing_enabled = False
+        rng = np.random.default_rng(0)
+        frames = (world.render_device(T, slam.cam, want_depth=True, noise=2.0, rng=rng,
+                                      device="cuda") for T in traj)
+        calls, flips = _gate_flips(slam, frames, slam.track_rgbd_device, want)
+        slam.shutdown()
+        print(f"{name}: {len(calls)} neighbour calls, {sum(calls)} points passed the gates, "
+              f"{len(flips)} rows flipped")
+        for call, row, margins in flips:
+            gate = min(margins, key=lambda k: abs(margins[k]))
+            print(f"  call {call} row {row}: gate {gate}, relative margin {margins[gate]:.3g}")
+            assert abs(margins[gate]) <= 1e-3, (name, call, row, margins)
+        assert len(calls) >= (want or 10) and sum(calls) > 0
 
 
 # ------------------------------------------------------------- distribution

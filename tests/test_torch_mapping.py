@@ -260,6 +260,73 @@ def test_fuse_single_target_with_candidates_equal(chain):
     _assert_banks(got, ref)
 
 
+def _slot(i):
+    """Keyframe slot ``i`` as the card's mapping graphs take it: a (1,)
+    int32 view of an arange."""
+    return torch.arange(24, dtype=torch.int32)[i:i + 1]
+
+
+def _slot_run(step, state, *args, **kwargs):
+    """``run_eager`` with every int argument (a keyframe slot) as ``_slot``."""
+    return TLM.run_eager(step, state, *(_slot(a) if isinstance(a, int) else a for a in args),
+                         **kwargs)
+
+
+def _assert_maps_equal(got, want):
+    for name in TMS.MapState.__dataclass_fields__:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+@pytest.mark.parametrize("case", ["tri_next_free", "tri_near_full", "fuse_direction_1",
+                                  "fuse_direction_2"])
+def test_device_slot_forms_equal_int_forms(run, chain, case):
+    """Triangulation over the listed neighbours (from the next free slot,
+    and from 100 slots before the bank's end, where the stop fires
+    mid-loop), a direction-1 fuse into one target and the direction-2 fuse,
+    with the keyframe slots as (1,) device tensors, are ``torch.equal`` to
+    the same calls with host ints."""
+    cam = t_cam(TCFG.camera)
+    kw = dict(scale_factor=SF, n_levels=NL)
+    if case.startswith("tri"):
+        S0 = _port(run["S0"])
+        P = S0.pt_pos.shape[0]
+        pt_base = run["n_pt"] if case == "tri_next_free" else P - 100
+        neighbors = np.asarray(chain["ws"][0]).tolist()
+        got, want = (TLM.triangulate_with_neighbors(S0, KF, neighbors, cam, pt_base, max_new=64,
+                                                    min_baseline_ratio=0.005, run=r, **kw)
+                     for r in (_slot_run, TLM.run_eager))
+        assert torch.equal(got[1], want[1]) and int(want[1]) > 0
+        got, want = got[0], want[0]
+    elif case == "fuse_direction_1":
+        S1 = _port(chain["S1"])
+        target = int(np.asarray(chain["ws"][1])[0])
+        cand = torch.from_numpy(chain["S1"].kf_point_idx[KF].copy())
+        got, want = (TLM.fuse_into_keyframe(S1, slot, cam, budget=1024, cand_idx=cand, **kw)
+                     for slot in (_slot(target), target))
+    else:
+        S2 = _port(chain["S2"])
+        targets = torch.from_numpy(np.asarray(chain["ws"][1]).copy())
+        got, want = (run_(TLM.fuse_targets_gen, S2, KF, targets, cam, budget=2048, **kw)
+                     for run_ in (_slot_run, TLM.run_eager))
+        _assert_banks(want, chain["S3"])
+    _assert_maps_equal(got, want)
+
+
+def test_mapping_run_on_the_cpu_is_eager(chain):
+    """On the CPU ``_mapping_run`` captures no graph: it runs the step
+    eagerly and counts an eager call."""
+    slam = TSlam(TCFG, device="cpu")
+    S1 = _port(chain["S1"])
+    target = int(np.asarray(chain["ws"][1])[0])
+    cand = torch.from_numpy(chain["S1"].kf_point_idx[KF].copy())
+    kw = dict(budget=1024, scale_factor=SF, n_levels=NL, cand_idx=cand)
+    eager = telemetry.get("mapping.tri_fuse_eager_calls")
+    got = slam._mapping_run(TLM.fuse_gen, S1, target, slam.cam, **kw)
+    assert telemetry.get("mapping.tri_fuse_eager_calls") == eager + 1
+    assert slam._tri_fuse_graphs == {}
+    _assert_maps_equal(got, TLM.fuse_into_keyframe(S1, target, slam.cam, **kw))
+
+
 def test_cull_recent_map_points_equal(chain):
     got = TLM.cull_recent_map_points(_port(chain["S3"]), KF, chain["reserved_end"])
     _assert_banks(got, chain["S4"])
